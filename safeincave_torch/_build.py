@@ -28,6 +28,11 @@ SIGNATURES = {
         "band_matvec_f32": ([_P] * 9 + [_I, _I, _P], ctypes.c_int),
         "band_matvec_error_string": ([_I], ctypes.c_char_p),
     },
+    "dia_matvec": {
+        "dia_matvec_f32": ([_P, _P, _P, _I, _I, _P, _P], ctypes.c_int),
+        "dia_matvec_f64": ([_P, _P, _P, _I, _I, _P, _P], ctypes.c_int),
+        "dia_matvec_error_string": ([_I], ctypes.c_char_p),
+    },
 }
 
 _loaded: dict = {}
@@ -46,31 +51,53 @@ def _nvcc() -> str:
     return nvcc
 
 
+def _paths(name: str):
+    """(source, library path); the library name carries the source hash."""
+    src = os.path.join(SRC_DIR, f"{name}.cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    return src, os.path.join(BUILD_DIR,
+                             f"lib{name}_{digest.hexdigest()[:16]}.so")
+
+
+def build(names) -> None:
+    """Compile the missing libraries of ``names``, one nvcc each, all
+    started together; raises if any fails."""
+    jobs = {}
+    try:
+        for name in names:
+            src, lib_path = _paths(name)
+            if name in _loaded or os.path.isfile(lib_path):
+                continue
+            nvcc = _nvcc()
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", tmp, src],
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+            jobs[name] = (proc, tmp, src, lib_path, time.perf_counter())
+        for name, (proc, tmp, src, lib_path, t0) in jobs.items():
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src}:\n{err}")
+            os.replace(tmp, lib_path)
+            build_seconds[name] = time.perf_counter() - t0
+    finally:
+        for proc, tmp, *_ in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.remove(tmp)
+
+
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; raises on failure."""
     if name in _loaded:
         return _loaded[name]
-    src = os.path.join(SRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    lib_path = os.path.join(BUILD_DIR,
-                            f"lib{name}_{digest.hexdigest()[:16]}.so")
-    if not os.path.isfile(lib_path):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        t0 = time.perf_counter()
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                                  capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
-            os.replace(tmp, lib_path)
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
-        build_seconds[name] = time.perf_counter() - t0
-    lib = ctypes.CDLL(lib_path)
+    build([name])
+    lib = ctypes.CDLL(_paths(name)[1])
     for fn, (argtypes, restype) in SIGNATURES[name].items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = restype

@@ -11,10 +11,12 @@ float64 fixed point that the cavern benchmark runs).  One linearized step:
 
 The JAX package runs a time step as one jitted ``lax.while_loop``; here the
 fixed-point and Krylov loops are Python loops that read their conditions on
-the host, with the same update sequence.
+the host, with the same update sequence.  On CUDA the early iterations of a
+step run as a float32 sweep (``SolverSettings.fp32_phase``) before the f64
+finish, as the JAX package does on an accelerator.
 
-Not ported yet (queued in ROADMAP.md): the float32 fixed-point phase, tangent
-lagging, adaptive inner tolerances, halo mode and thermal coupling.
+Not ported yet (queued in ROADMAP.md): tangent lagging, adaptive inner
+tolerances, the bf16 dense preconditioner, halo mode and thermal coupling.
 """
 from __future__ import annotations
 
@@ -50,6 +52,12 @@ class SolverSettings:
     otherwise, as the JAX package does on an accelerator and on the CPU.
 
     Every method other than "cg" runs BiCGStab, as in the JAX package.
+
+    ``fp32_phase``: "auto" runs the early fixed-point iterations of each
+    time step entirely in float32 while the strain-change error is above
+    ``fp32_switch``, on an equation on CUDA (off on the CPU, as the JAX
+    package decides by backend); True/False force it.  Convergence is only
+    declared after a float64 iteration.
     """
     method: str = "bicgstab"
     rtol: float = 1e-12
@@ -63,20 +71,22 @@ class SolverSettings:
     adaptive_rtol: bool = False
     lag_tangent: bool = False
     fp32_phase: object = "auto"
+    fp32_switch: float = 1e-4
 
     def __post_init__(self):
         for name in ("adaptive_rtol", "lag_tangent"):
             if getattr(self, name):
                 raise NotImplementedError(
                     f"{name}=True is not ported yet (queued in ROADMAP.md)")
-        if self.fp32_phase not in ("auto", False):
-            raise NotImplementedError(
-                "fp32_phase=True is not ported yet (queued in ROADMAP.md)")
 
-    def fp32_enabled(self) -> bool:
-        """The f32 fixed-point phase is not ported: "auto" resolves to
-        False."""
-        return False
+    def fp32_enabled(self, device=None) -> bool:
+        """Whether the f32 sweep runs for an equation on ``device`` (default:
+        :func:`default_device`); "auto" means on CUDA only."""
+        if self.fp32_phase == "auto":
+            dev = torch.device(device) if device is not None \
+                else default_device()
+            return dev.type == "cuda"
+        return bool(self.fp32_phase)
 
     def solve_fn(self):
         return cg_solve if self.method == "cg" else bicgstab_solve
@@ -203,17 +213,48 @@ def build_preconditioner(kern, C, mask, settings: SolverSettings):
     return (blk_inv,), apply_bj
 
 
+def _f64_action(kern, CT_hi):
+    """(f64 stiffness action, f64 planes or None) of one linearized solve.
+
+    A general (not structured) block-DIA operator assembles f64 planes and
+    applies them with the DIA kernel; otherwise the action is the cumsum
+    matvec (a structured box assembles only the f32 planes, which are cheap,
+    and keeps the exact f64 action matrix-free)."""
+    dia = kern.dia
+    if dia is not None and not dia.structured:
+        planes = dia.assemble(CT_hi)
+        return (lambda x: dia.matvec(planes, x)), planes
+    return (lambda x: kern.matvec(CT_hi, x)), None
+
+
+def _f32_action(kern, CT, planes_hi):
+    """The f32 Krylov operator of one linearized solve: the f32 cast of the
+    general DIA planes, the DIA planes assembled from the f32 tangent on a
+    structured box, the band kernel, or the f32 cumsum matvec."""
+    dia = kern.dia
+    if planes_hi is not None:
+        planes = planes_hi.to(F32)
+        return lambda x: dia.matvec(planes, x)
+    CT_lo = kern.prep(CT.to(F32))
+    if dia is not None:
+        planes = dia.assemble(CT_lo)
+        return lambda x: dia.matvec(planes, x)
+    if kern.band is not None:
+        ctv = kern.band.pack_ct(CT_lo)
+        return lambda x: kern.band.matvec(ctv, x)
+    return lambda x: kern.matvec(CT_lo, x)
+
+
 def _make_masked_solver(kern, settings: SolverSettings, apply_M,
                         zero_dirichlet: bool = False):
     """Build ``solve_lin(CT, b, mask, u_bc, x0, rtol, P) -> (x, iters, res,
     b_eff_norm)``.
 
     Dirichlet conditions by masking + lifting; ``b_eff_norm`` is the norm
-    of the right-hand side actually solved.  The f64 action is the cumsum
-    matvec; in mixed precision the f32 Krylov operator is the band kernel
-    when the kernel has one, else the f32 cumsum matvec.  When the mixed
-    passes stagnate above the target, the solve finishes in f64 from the
-    best mixed iterate and keeps whichever residual is smaller.
+    of the right-hand side actually solved.  The operators are chosen by
+    :func:`_f64_action` and :func:`_f32_action`.  When the mixed passes
+    stagnate above the target, the solve finishes in f64 from the best
+    mixed iterate and keeps whichever residual is smaller.
     ``zero_dirichlet`` drops the lifting matvec A @ u_bc, which is zero for
     homogeneous supports.
     """
@@ -222,10 +263,11 @@ def _make_masked_solver(kern, settings: SolverSettings, apply_M,
 
     def solve_lin(CT, b, mask, u_bc, x0, rtol, P):
         CT_hi = kern.prep(CT)
+        mv_hi, planes_hi = _f64_action(kern, CT_hi)
         free = 1.0 - mask
 
         def Aop(x):
-            return mask * kern.matvec(CT_hi, mask * x) + free * x
+            return mask * mv_hi(mask * x) + free * x
 
         def M_inv(r):
             return apply_M(P, r, mask)
@@ -233,7 +275,7 @@ def _make_masked_solver(kern, settings: SolverSettings, apply_M,
         if zero_dirichlet:
             b_eff = mask * b
         else:
-            b_eff = mask * (b - kern.matvec(CT_hi, u_bc)) + free * u_bc
+            b_eff = mask * (b - mv_hi(u_bc)) + free * u_bc
         b_eff_norm = torch.sqrt(torch.dot(b_eff.reshape(-1),
                                           b_eff.reshape(-1)))
         if not mixed:
@@ -243,15 +285,10 @@ def _make_masked_solver(kern, settings: SolverSettings, apply_M,
 
         mask32 = mask.to(F32)
         free32 = 1.0 - mask32
-        CT_lo = kern.prep(CT.to(F32))
-        if kern.band is not None:
-            ctv = kern.band.pack_ct(CT_lo)
+        mv_lo = _f32_action(kern, CT, planes_hi)
 
-            def Aop32(x):
-                return mask32 * kern.band.matvec(ctv, mask32 * x) + free32 * x
-        else:
-            def Aop32(x):
-                return mask32 * kern.matvec(CT_lo, mask32 * x) + free32 * x
+        def Aop32(x):
+            return mask32 * mv_lo(mask32 * x) + free32 * x
 
         def M_inv32(r):
             return apply_M(P, r, mask32)
@@ -270,6 +307,69 @@ def _make_masked_solver(kern, settings: SolverSettings, apply_M,
         return x, k, res, b_eff_norm
 
     return solve_lin
+
+
+def _make_solve32(kern, settings: SolverSettings, apply_M,
+                  zero_dirichlet: bool = False):
+    """Build ``solve32(CT, b, x0, rtol, mask32, ubc32, P) -> (x, iters,
+    res)`` for the f32 sweep: defect correction (at most 4 passes) on the
+    f32 tangent ``CT`` (6, 6, E), with the residuals in f64 and the Krylov
+    passes on the f32 operator.  A raw f32 BiCGStab can diverge on the
+    Desai-coupled tangent; restarting each pass from an f64 residual cures
+    that for one f64 matvec per pass.  Returns f32 ``x`` and ``res``."""
+    solve = settings.solve_fn()
+
+    def solve32(CT, b, x0, rtol, mask32, ubc32, P):
+        mask64, ubc64 = mask32.to(F64), ubc32.to(F64)
+        mv64, planes64 = _f64_action(kern, CT.to(F64))
+        mv32 = _f32_action(kern, CT, planes64)
+
+        def Aop_hi(x):
+            return mask64 * mv64(mask64 * x) + (1.0 - mask64) * x
+
+        def Aop_lo(x):
+            return mask32 * mv32(mask32 * x) + (1.0 - mask32) * x
+
+        def M_inv(r):
+            return apply_M(P, r, mask32)
+
+        b64 = b.to(F64)
+        if zero_dirichlet:
+            b_eff = mask64 * b64
+        else:
+            b_eff = mask64 * (b64 - mv64(ubc64)) + (1.0 - mask64) * ubc64
+        x, k, res = ir_solve(Aop_hi, Aop_lo, b_eff, x0.to(F64), M_inv,
+                             inner_solve=solve, rtol=rtol,
+                             inner_rtol=settings.inner_rtol,
+                             inner_maxiter=settings.max_it, max_passes=4)
+        return x.to(F32), k, res.to(F32)
+
+    return solve32
+
+
+def select_backend(grid, device):
+    """The stiffness backend :class:`LinearMomentum` tries on ``device``,
+    as the JAX package selects on an accelerator: on CUDA, "dia" for a
+    natural (not reordered) numbering and "band" for a band-ordered grid;
+    None (the cumsum operator alone) otherwise."""
+    if torch.device(device).type != "cuda":
+        return None
+    method = getattr(grid, "reorder_method", None)
+    if method in (None, "natural"):
+        return "dia"
+    return "band" if method == "band" else None
+
+
+# state keys that stay frozen during a step's fixed point (committed
+# history, written only by the commit); the f32 sweep's copies are replaced
+# by the f64 entry values, so the f64 finish solves the same problem as a
+# pure-f64 run
+_FROZEN = ("eps_old", "rate_old", "qsi_old", "zeta_old")
+
+
+def _to(state, dtype):
+    return {k: v.to(dtype) if v.is_floating_point() else v
+            for k, v in state.items()}
 
 
 class LinearMomentumBase:
@@ -357,36 +457,59 @@ class LinearMomentumBase:
 class LinearMomentum(LinearMomentumBase):
     """Concrete formulation.
 
-    On CUDA a band-ordered grid (``reorder="band"``) selects the hand-written
-    band kernel as the f32 Krylov operator, as the JAX package selects its
-    Pallas band kernel on an accelerator; the f64 defect correction keeps the
-    cumsum matvec.  A plan or build failure raises.
+    On CUDA the stiffness backend follows :func:`select_backend`, as the JAX
+    package selects on an accelerator: a natural-order grid gets the
+    assembled block-DIA operator with its CUDA kernel (a numbering that
+    :class:`~safeincave_torch.fem.dia.DIAPlan` refuses keeps the cumsum
+    operator), a band-ordered grid the band kernel as the f32 Krylov
+    operator.  A kernel that fails to build or launch raises.
+
+    ``fp32_accepted`` counts the steps whose f32 sweep the health gate
+    accepted.
     """
 
     def __init__(self, grid, theta: float, auto_backend: bool = True,
                  device=None):
         super().__init__(grid, theta, device)
         self._precond = None
-        self._solve_lin = None
-        if (auto_backend and self.device.type == "cuda"
-                and getattr(grid, "reorder_method", None) == "band"):
+        self._reset_solvers()
+        self.fp32_accepted = 0
+        backend = select_backend(grid, self.device) if auto_backend else None
+        if backend == "dia":
+            try:
+                self.kernel.enable_dia()
+            except ValueError:
+                pass    # not offset-structured: keep the cumsum operator
+        elif backend == "band":
             self.kernel.enable_band()
+
+    def _reset_solvers(self):
+        self._solve_lin = None
+        self._solve32 = None
 
     def enable_band_matvec(self):
         """Route the f32 Krylov stiffness action through the band kernel
         (on the CPU its plain twin)."""
         self.kernel.enable_band()
-        self._solve_lin = None
+        self._reset_solvers()
+
+    def enable_dia_matvec(self, max_offsets: int = 96,
+                          min_fill: float = 0.4):
+        """Route the Krylov stiffness action through the assembled block-DIA
+        operator (on the CPU its plain twin).  Raises ValueError when the
+        node numbering is not offset-structured."""
+        self.kernel.enable_dia(max_offsets=max_offsets, min_fill=min_fill)
+        self._reset_solvers()
 
     def set_solver(self, solver):
         super().set_solver(solver)
         self._precond = None
-        self._solve_lin = None
+        self._reset_solvers()
 
     def set_boundary_conditions(self, bc):
         super().set_boundary_conditions(bc)
         self._precond = None
-        self._solve_lin = None
+        self._reset_solvers()
 
     def compute_elastic_stress(self, eps_e):
         self.sig_v = apply66(self.mat.C, self._f64(_as_voigt(eps_e)))
@@ -410,6 +533,14 @@ class LinearMomentum(LinearMomentumBase):
                 zero_dirichlet=self.bc.all_zero_dirichlet)
         return self._solve_lin
 
+    def _get_solve32(self):
+        if self._solve32 is None:
+            _, apply_M = self._get_precond()
+            self._solve32 = _make_solve32(
+                self.kernel, self.solver, apply_M,
+                zero_dirichlet=self.bc.all_zero_dirichlet)
+        return self._solve32
+
     def _linear_solve(self, CT, b):
         """Solve a(CT) u = b with Dirichlet masking + lifting."""
         mask, u_bc = self.bc.mask, self.bc.u_bc
@@ -427,12 +558,110 @@ class LinearMomentum(LinearMomentumBase):
         self.run_after_solve()
 
     # ------------------------------------------------------------------ #
+    def _fp32_sweep(self, states, sv, eps_v, u, b_ext, mask, u_bc, dt,
+                    maxiter, P):
+        """The f32 sweep of a step's fixed point and its health gate.
+
+        The f64 body's update sequence runs in float32 (materials,
+        assembly, Krylov, stress and internal variables) while the
+        strain-change error is above ``fp32_switch`` and halves every
+        iteration, for at most min(maxiter - 2, 6) iterations.  Each solve
+        is only as tight as the iteration needs (rtol = 0.05 err clipped to
+        [1e-6, 1e-2]); an iterate that is not finite or did not halve the
+        residual is replaced by the initial guess.
+
+        The gate restores the frozen history from the f64 entry state and
+        accepts the sweep only if its error reached ``fp32_switch``, every
+        value is finite, |sigma| < 1e9 Pa, |eps| < 0.5 and no hardening
+        variable moved more than 30 % from its entry value; otherwise the
+        f64 phase starts from the entry state.  Host syncs: two per sweep
+        iteration besides the Krylov loops', and one for the gate.
+
+        Returns (states, sv, eps_v, u, iterations, err, krylov_total,
+        krylov_last), iterations 0 and err 1.0 for a rejected sweep."""
+        mat, kern, theta = self.mat, self.kernel, self.theta
+        elems_ne = list(mat.elems_ne)
+        switch = self.solver.fp32_switch
+        solve32 = self._get_solve32()
+        b32, mask32, ubc32 = b_ext.to(F32), mask.to(F32), u_bc.to(F32)
+        Temp32 = self.Temp.to(F32)
+        dt = float(np.float32(dt))
+        phi1, phi2 = dt * theta, dt * (1 - theta)
+        st32 = [_to(st, F32) for st in states]
+        sv32, eps32, u32 = sv.to(F32), eps_v.to(F32), u.to(F32)
+        w = voigt_weight(sv32)
+
+        ite, err, prog, kry_tot, kry = 0, 1.0, True, 0, 0
+        while (err > switch and ite < min(maxiter - 2, 6)
+               and math.isfinite(err) and prog):
+            err_prev, sv_k = err, sv32
+            new_states, G, B6 = mat.f_tangent_all(st32, sv_k, Temp32, dt,
+                                                  theta)
+            CT = kern.prep(mat.f_CT(G, dt, theta))
+            eps_ne_k = torch.zeros_like(sv32)
+            states2 = []
+            for e, st in zip(elems_ne, new_states):
+                st = e.f_eps_k(st, phi1, phi2)
+                eps_ne_k = eps_ne_k + st["eps_k"]
+                states2.append(st)
+            eps_rhs = eps_ne_k - phi2 * (B6 + kern.apply66(kern.prep(G),
+                                                           sv_k))
+            b = b32 + kern.internal_force(kern.apply66(CT, eps_rhs))
+            x0 = mask32 * u32 + (1.0 - mask32) * ubc32
+            lin_rtol = min(max(0.05 * err_prev, 1e-6), 1e-2)
+            u_new, kry, lin_res = solve32(CT, b, x0, lin_rtol, mask32, ubc32,
+                                          P)
+            b_norm = torch.sqrt(torch.dot(b.reshape(-1), b.reshape(-1)))
+            u_ok = (torch.isfinite(torch.dot(u_new.reshape(-1),
+                                             u_new.reshape(-1)))
+                    & torch.isfinite(lin_res) & (lin_res < 0.5 * b_norm))
+            if not bool(u_ok):
+                u_new = x0
+            eps_new = kern.strain(u_new)
+            sv_new = kern.apply66(CT, eps_new - eps_rhs)
+            states3 = []
+            for e, st in zip(elems_ne, states2):
+                st = e.f_increment_isv(st, sv_new, sv_k, dt)
+                st = e.f_rate(st, sv_new, phi1, Temp32)
+                states3.append(st)
+            diff = torch.sqrt((((eps_new - eps32) ** 2) * w).sum())
+            ref = torch.sqrt(((eps_new ** 2) * w).sum())
+            err = float(torch.where(torch.isfinite(sv_new).all(), diff / ref,
+                                    math.inf))
+            prog = err < 0.5 * err_prev
+            kry_tot += kry
+            st32, sv32, eps32, u32 = states3, sv_new, eps_new, u_new
+            ite += 1
+
+        new = [{k: (o[k] if k in _FROZEN else v) for k, v in _to(st, F64)
+                .items()} for o, st in zip(states, st32)]
+        sv64, eps64, u64 = sv32.to(F64), eps32.to(F64), u32.to(F64)
+        ok = math.isfinite(err) and err <= switch
+        if ok:
+            checks = [sv64.abs().max() < 1e9, eps64.abs().max() < 0.5]
+            for o, st in zip(states, new):
+                for k in ("alpha", "zeta"):
+                    if k in st:
+                        checks.append(((st[k] - o[k]).abs()
+                                       <= 0.3 * o[k].abs() + 1e-6).all())
+            leaves = [v for st in new for v in st.values()]
+            checks += [torch.isfinite(a).all()
+                       for a in leaves + [sv64, eps64, u64]
+                       if a.is_floating_point()]
+            ok = bool(torch.stack(checks).all())
+        if not ok:
+            return states, sv, eps_v, u, 0, 1.0, kry_tot, kry
+        self.fp32_accepted += 1
+        return new, sv64, eps64, u64, ite, err, kry_tot, kry
+
     def _fixed_point(self, states, sv, eps_v, u, b_ext, mask, u_bc, dt, tol,
-                     maxiter):
+                     maxiter, fp32_on=True):
         """One time step's fixed-point iteration: tangent -> CT -> eps_rhs
         -> Krylov -> strain -> stress -> ISV increment -> rates ->
-        strain-change error, until ``err <= tol`` (after at least one
-        iteration), ``maxiter``, or a non-finite error.
+        strain-change error, until ``err <= tol`` (after at least one f64
+        iteration), ``maxiter``, or a non-finite error.  When the f32 phase
+        is enabled (and ``fp32_on``), :meth:`_fp32_sweep` runs first and
+        its iterations count towards ``maxiter``.
 
         A diverged or stalled solve, or a non-finite stress, sets the error
         to inf so the step fails instead of reading as converged.
@@ -449,10 +678,15 @@ class LinearMomentum(LinearMomentumBase):
         free = 1.0 - mask
         phi1, phi2 = dt * theta, dt * (1 - theta)
 
-        ite, err, sv_k = 0, 1.0, sv
+        ite, err, sv_k, first = 0, 1.0, sv, True
         kry_tot, kry, lin_res = 0, 0, 0.0
-        while (err > tol and ite < maxiter and math.isfinite(err)) or \
-                ite == 0:
+        if (fp32_on and not trivial_error
+                and self.solver.fp32_enabled(self.device)):
+            (states, sv, eps_v, u, ite, err, kry_tot, kry) = \
+                self._fp32_sweep(states, sv, eps_v, u, b_ext, mask, u_bc,
+                                 dt, maxiter, P)
+        while (err > tol and ite < maxiter and math.isfinite(err)) or first:
+            first = False
             sv_k = sv
             new_states, G, B6 = mat.f_tangent_all(states, sv_k, self.Temp,
                                                   dt, theta)
@@ -527,13 +761,15 @@ class LinearMomentum(LinearMomentumBase):
         """Run one time step's fixed-point iteration; returns (iterations,
         error).  The Krylov initial guess extrapolates linearly from the
         previous step.  The last iteration's sigma_k is kept for the commit
-        phase."""
+        phase.  A true ``_fp32_disable`` attribute (set by a dt-retry) runs
+        the step without the f32 sweep."""
         u_prev = getattr(self, "_u_last_step", None)
         u0 = self.u if u_prev is None else self.u + (self.u - u_prev)
         self._u_last_step = self.u
         (states, sv, eps_v, u, sv_k, ite, err, stats) = self._fixed_point(
             [e.state for e in self.mat.elems_ne], self.sig_v, self.eps_tot_v,
-            u0, *self._step_inputs(t), dt, tol, maxiter)
+            u0, *self._step_inputs(t), dt, tol, maxiter,
+            fp32_on=not getattr(self, "_fp32_disable", False))
         for e, st in zip(self.mat.elems_ne, states):
             e.state = st
         self.sig_v, self.eps_tot_v, self.u = sv, eps_v, u

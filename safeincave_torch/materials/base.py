@@ -82,6 +82,20 @@ class NonElasticElement:
         return {}
 
     # -- batched rate + exact tangent ------------------------------------- #
+    def _p(self, dtype):
+        """Parameters in the compute dtype.
+
+        The stored parameters are float64; multiplying them into a float32
+        computation would promote it back to float64, so the f32 fixed-point
+        sweep computes with a float32 shadow, made again whenever ``params``
+        is replaced."""
+        if dtype != torch.float32:
+            return self.params
+        if getattr(self, "_params32_of", None) is not self.params:
+            self._params32 = {k: v.to(dtype) for k, v in self.params.items()}
+            self._params32_of = self.params
+        return self._params32
+
     def _E_exact(self, sv6, isv, T):
         """Exact E = d(rate)/d(sigma_voigt) (E, 6, 6), shear columns doubled.
 
@@ -89,7 +103,7 @@ class NonElasticElement:
         of the element-wise rate yields every column."""
         E = sv6.shape[0]
         rep = lambda x: x.repeat(6)  # noqa: E731
-        p6 = {k: rep(v) for k, v in self.params.items()}
+        p6 = {k: rep(v) for k, v in self._p(sv6.dtype).items()}
         isv6 = {k: rep(v) for k, v in isv.items()}
         T6 = rep(T)
         tangent = torch.eye(6, dtype=sv6.dtype, device=sv6.device)
@@ -102,7 +116,8 @@ class NonElasticElement:
     # -- pure-functional API ---------------------------------------------- #
     def f_rate_value(self, state, sv6, phi1, T):
         """Rate without state mutation."""
-        return self._rate(sv6, self._isv_slice(state), T, self.params)
+        return self._rate(sv6, self._isv_slice(state), T,
+                          self._p(sv6.dtype))
 
     def f_rate(self, state, sv6, phi1, T):
         new = dict(state)

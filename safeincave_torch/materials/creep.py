@@ -23,7 +23,11 @@ def _dev6(sv6):
 
 def _von_mises6_floor(sv6, floor):
     """Von Mises with the floor inside the sqrt, so the derivative stays
-    finite at zero deviatoric stress."""
+    finite at zero deviatoric stress.  In float32 the squared floor must stay
+    above the underflow threshold (1e-30 squared flushes to 0), else the
+    derivative there is NaN."""
+    if sv6.dtype == torch.float32:
+        floor = max(floor, 1e-15)
     xx, yy, zz, xy, xz, yz = sv6.unbind(-1)
     arg = 0.5 * ((xx - yy) ** 2 + (xx - zz) ** 2 + (yy - zz) ** 2
                  + 6.0 * (xy ** 2 + xz ** 2 + yz ** 2))
@@ -62,11 +66,16 @@ class Viscoelastic(NonElasticElement):
         self.params = {"eta": self._tensor(eta), "E": self._tensor(E),
                        "nu": self._tensor(nu)}
         self.C1 = torch.as_tensor(isotropic_C(E, nu), device=self.device)
+        self._C1_32 = self.C1.to(torch.float32)
+
+    def _C1_for(self, dtype):
+        return self._C1_32 if dtype == torch.float32 else self.C1
 
     def f_tangent(self, state, sv6, T, dt, theta):
         phi2 = dt * (1 - theta)
         eye = torch.eye(6, dtype=sv6.dtype, device=sv6.device)
-        mat = self.params["eta"][:, None, None] * eye + phi2 * self.C1
+        mat = (self._p(sv6.dtype)["eta"][:, None, None] * eye
+               + phi2 * self._C1_for(sv6.dtype))
         E_op, _ = inv6x6_fast(mat)
         new = dict(state)
         new["G"] = E_op
@@ -75,5 +84,5 @@ class Viscoelastic(NonElasticElement):
 
     def f_rate_value(self, state, sv6, phi1, T):
         hist = state["eps_old"] + phi1 * state["rate_old"]
-        drive = sv6 - apply66(self.C1, hist)
+        drive = sv6 - apply66(self._C1_for(sv6.dtype), hist)
         return apply66(state["G"], drive)

@@ -30,6 +30,9 @@ class Material:
         self._CT_el = torch.as_tensor(np.linalg.inv(self._C_inv)
                                       if self.elems_e else self._C,
                                       device=self.device)
+        # float32 shadows for the f32 fixed-point sweep
+        self._f32 = (self.C_inv.to(torch.float32),
+                     self._CT_el.to(torch.float32))
 
     def set_density(self, density):
         self.density = np.asarray(density, dtype=np.float64)
@@ -62,7 +65,12 @@ class Material:
         return new_states, G, B
 
     def f_CT(self, G, dt, theta):
-        """CT = (C_inv + dt(1-theta) G)^-1 with the elastic fallback."""
-        mat = self.C_inv + dt * (1 - theta) * G
+        """CT = (C_inv + dt(1-theta) G)^-1 with the elastic fallback, in
+        G's dtype."""
+        if G.dtype == torch.float32:
+            C_inv, fallback = self._f32
+        else:
+            C_inv, fallback = self.C_inv, self._CT_el
+        mat = C_inv + dt * (1 - theta) * G
         CT, ok = inv6x6_fast(mat)
-        return torch.where(ok[:, None, None], CT, self._CT_el)
+        return torch.where(ok[:, None, None], CT, fallback)

@@ -164,14 +164,20 @@ class ViscoplasticDesai(NonElasticElement):
     def f_rate(self, state, sv6, phi1, T):
         new = dict(state)
         new["rate"], new["Fvp"] = self._rate_static(sv6, state["alpha"],
-                                                     self.params)
+                                                     self._p(sv6.dtype))
         return new
 
     def f_tangent(self, state, sv6, T, dt, theta):
         """(r, h, Q, P) hardening linearization by the reference's literal
         forward differences: the base residue uses the *stored* rate while
-        the probes recompute the rate, and the trajectories depend on it."""
-        p = self.params
+        the probes recompute the rate, and the trajectories depend on it.
+
+        In float32 (the f32 fixed-point sweep) the probes fall below the
+        format's resolution (0.1 Pa on ~1e7 Pa is a 1e-8 relative nudge), so
+        they are widened; the probes shape only the iteration path, and the
+        f64 iterations with the reference probes decide convergence."""
+        p = self._p(sv6.dtype)
+        f32 = sv6.dtype == torch.float32
         alpha = state["alpha"]
         qsi_old = state["qsi_old"]
 
@@ -180,7 +186,7 @@ class ViscoplasticDesai(NonElasticElement):
 
         r, _ = self._residue(state["rate"], alpha, qsi_old, dt, p)
 
-        eps_a = self.EPS_ALPHA * alpha
+        eps_a = (1e-2 if f32 else self.EPS_ALPHA) * alpha
         rate_a = rate(sv6, alpha + eps_a)
         r_a, _ = self._residue(rate_a, alpha + eps_a, qsi_old, dt, p)
         h = (r_a - r) / eps_a
@@ -188,10 +194,12 @@ class ViscoplasticDesai(NonElasticElement):
 
         P_cols = []
         for k in range(6):
+            eps_s = (1e-3 * (1.0 + sv6[:, k].abs()) if f32
+                     else self.EPS_STRESS)
             sv_p = sv6.clone()
-            sv_p[:, k] += self.EPS_STRESS
+            sv_p[:, k] += eps_s
             r_p, _ = self._residue(rate(sv_p, alpha), alpha, qsi_old, dt, p)
-            P_cols.append((r_p - r) / self.EPS_STRESS)
+            P_cols.append((r_p - r) / eps_s)
         P = torch.stack(P_cols, dim=-1)
 
         # the committed qsi uses the fresh rate at the probe point

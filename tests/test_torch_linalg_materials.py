@@ -288,3 +288,58 @@ def test_material_tangent_and_CT_with_fallback(setup):
     np.testing.assert_array_equal(CTp[1].numpy(), np.asarray(CTj)[1])
     for e in range(E_N):
         _close(CTp[e], np.asarray(CTj)[e], RTOL, f"CT[{e}]")
+
+
+def _f32(state):
+    return {k: v.float() if v.is_floating_point() else v
+            for k, v in state.items()}
+
+
+def _jf32(state):
+    return {k: v.astype(jnp.float32) if jnp.issubdtype(v.dtype, jnp.floating)
+            else v for k, v in state.items()}
+
+
+F32_RTOL = 1e-5
+
+
+def test_f32_material_path(setup):
+    """The f32 fixed-point sweep's materials: an f32 state and stress give
+    f32 outputs through f_tangent_all, f_CT, f_eps_k, f_increment_isv and
+    f_rate (an f64 parameter or constant would promote them), and the
+    tangents match JAX's f32 path at 1e-5 max|ref|: XLA and torch round the
+    f32 exp/pow, the JVPs and the widened Desai probes differently (measured
+    ~1e-6).  f_CT from one shared f32 G agrees to the same bound."""
+    p, _, _, sv, T = setup
+    mj, mp = _material(sc, p), _material(st, p)
+    rng = np.random.default_rng(9)
+    statesj, statesp = [], []
+    for e in mj.elems_ne:
+        sj, sp = _states(e, rng)
+        statesj.append(_jf32(sj))
+        statesp.append(_f32(sp))
+    f32 = torch.float32
+    svp, Tp = torch.as_tensor(sv, dtype=f32), torch.as_tensor(T, dtype=f32)
+    svj, Tj = jnp.asarray(sv, jnp.float32), jnp.asarray(T, jnp.float32)
+    nsj, Gj, Bj = mj.f_tangent_all(statesj, svj, Tj, DT, THETA)
+    nsp, Gp, Bp = mp.f_tangent_all(statesp, svp, Tp, DT, THETA)
+    assert Gp.dtype == Bp.dtype == f32
+    _close(Gp, Gj, F32_RTOL, "f32 G")
+    _close(Bp, Bj, F32_RTOL, "f32 B")
+    G = np.asarray(Gj).copy()
+    G[1, 2, 3] = np.nan           # ok-flag False: the f32 elastic fallback
+    CTp = mp.f_CT(torch.as_tensor(G), DT, THETA)
+    assert CTp.dtype == f32
+    np.testing.assert_array_equal(
+        CTp[1].numpy(), np.linalg.inv(np.asarray(mj.C_inv)[1]).astype(
+            np.float32))
+    _close(CTp, mj.f_CT(jnp.asarray(G), DT, THETA), F32_RTOL, "f32 CT")
+    for ej, ep, sj, sp in zip(mj.elems_ne, mp.elems_ne, nsj, nsp):
+        outs = (ep.f_eps_k(sp, DT * THETA, DT * (1 - THETA)),
+                ep.f_increment_isv(sp, svp, 1.001 * svp, DT),
+                ep.f_rate(sp, svp, DT * THETA, Tp))
+        for out in (sp,) + outs:
+            for k, v in out.items():
+                assert v.dtype in (f32, torch.bool), (ep.name, k, v.dtype)
+        _close(outs[2]["rate"], ej.f_rate(sj, svj, DT * THETA, Tj)["rate"],
+               F32_RTOL, f"{ep.name} f32 rate")

@@ -230,11 +230,76 @@ def test_dense_preconditioner_matches_jax():
 
 
 def test_unported_solver_options_raise():
-    assert st.SolverSettings().fp32_enabled() is False
-    for kw in (dict(fp32_phase=True), dict(lag_tangent=True),
-               dict(adaptive_rtol=True)):
+    """lag_tangent and adaptive_rtol are not ported; the f32 phase is: its
+    "auto" resolves by the equation's device, as the JAX package's does by
+    backend, and True forces it anywhere."""
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    auto = st.SolverSettings(fp32_switch=1e-4)
+    assert auto.fp32_enabled(cpu) is False and auto.fp32_enabled(cuda)
+    assert st.SolverSettings(fp32_phase=True).fp32_enabled(cpu)
+    assert not st.SolverSettings(fp32_phase=False).fp32_enabled(cuda)
+    for kw in (dict(lag_tangent=True), dict(adaptive_rtol=True)):
         with pytest.raises(NotImplementedError, match="not ported"):
             st.SolverSettings(**kw)
+
+
+# -- the f32 fixed-point sweep ---------------------------------------------- #
+# At dt = 60 s the sweep contracts to the switch and the gate accepts it in
+# every step; at the bench's 1 h steps on a coarse box the Kelvin-Voigt
+# strain jumps so far per step that the sweep stops on the "halve the error"
+# test and the gate discards it, in both packages alike.
+FP32_DT = 60.0
+
+
+@pytest.fixture(scope="module")
+def fp32_runs():
+    """The bench's material and loads on a natural-order box with
+    enable_dia_matvec: JAX and the port with fp32_phase=True, and the port
+    with the phase off."""
+    out = {}
+    for name, pkg, fp32 in (("jax", sc, True), ("port", st, True),
+                            ("port_f64", st, False)):
+        eq = cfg.wire_bench(pkg, pkg.GridBox(Lx=600.0, Ly=600.0, Lz=800.0,
+                                             nx=3, ny=3, nz=3),
+                            fp32_phase=fp32)
+        eq.enable_dia_matvec()
+        cfg.elastic_init(eq)
+        rows = eq.solve_time_steps(
+            [(k + 1) * FP32_DT for k in range(N_STEPS)], [FP32_DT] * N_STEPS,
+            tol=1e-8, maxiter=40)
+        out[name] = _record(eq, rows, dict(
+            accepted=getattr(eq, "fp32_accepted", None)))
+    return out
+
+
+@pytest.mark.parametrize("ref", ["jax", "port_f64"])
+def test_fp32_phase_fields(fp32_runs, ref):
+    """The port's f32 sweep against JAX's and against the port's f64-only
+    path: the f64 finish pins the fixed point, so fields agree at 2e-7
+    max|ref| (tests/test_msteps.py) and the converged flags are equal;
+    iteration counts may differ where f32 rounding moves the sweep."""
+    p, r = fp32_runs["port"], fp32_runs[ref]
+    assert p["accepted"] == N_STEPS
+    assert fp32_runs["port_f64"]["accepted"] == 0
+    assert (r["rows"][:, 5] == 1).all()
+    np.testing.assert_array_equal(p["rows"][:, 5], r["rows"][:, 5])
+    for k in ("u", "sig_v", "eps_tot_v"):
+        np.testing.assert_allclose(p[k], r[k], rtol=0,
+                                   atol=2e-7 * np.abs(r[k]).max(), err_msg=k)
+
+
+def test_fp32_disable_skips_the_sweep():
+    """A true ``_fp32_disable`` (the dt-retry flag) runs the step as the
+    pure-f64 path."""
+    eq = cfg.wire_bench(st, st.GridBox(Lx=600.0, Ly=600.0, Lz=800.0, nx=2,
+                                       ny=2, nz=2), fp32_phase=True)
+    cfg.elastic_init(eq)
+    eq._fp32_disable = True
+    eq.solve_time_step(FP32_DT, FP32_DT)
+    assert eq.fp32_accepted == 0
+    eq._fp32_disable = False
+    eq.solve_time_step(2 * FP32_DT, FP32_DT)
+    assert eq.fp32_accepted == 1
 
 
 @pytest.mark.slow
@@ -251,3 +316,25 @@ def test_cavern600_golden_cpu():
         np.testing.assert_array_equal(rows[:, [0, 5]], z["rows"][:, [0, 5]])
         _close(eq.u.numpy(), z["u"], 1e-8, "u")
         _close(eq.sig_v.numpy(), z["sig_v"], 1e-8, "sig_v")
+
+
+@pytest.mark.slow
+def test_box17_golden_cpu():
+    """The port on the CPU against tests/golden/torch_port_box17.npz (JAX,
+    the same configuration: enable_dia_matvec, 2level, fp32_phase=True).
+    The f64 finish pins the fields: elastic u at 1e-8, u and sig_v after 3
+    steps at 2e-7 max|ref| (test_fp32_phase_fields), equal converged flags;
+    fixed-point counts may differ where f32 rounding moves a sweep."""
+    eq = cfg.wire_bench(st, cfg.box17_grid(st), fp32_phase=True)
+    eq.enable_dia_matvec()
+    assert eq.kernel.dia.structured
+    cfg.elastic_init(eq)
+    with np.load(os.path.join(HERE, "golden", "torch_port_box17.npz")) as z:
+        _close(eq.u.numpy(), z["u_elastic"], 1e-8, "elastic u")
+        rows = eq.solve_time_steps([(k + 1) * DT for k in range(N_STEPS)],
+                                   [DT] * N_STEPS, tol=1e-8, maxiter=40)
+        np.testing.assert_array_equal(rows[:, 5], z["rows"][:, 5])
+        for k in ("u", "sig_v"):
+            np.testing.assert_allclose(
+                getattr(eq, k).numpy(), z[k], rtol=0,
+                atol=2e-7 * np.abs(z[k]).max(), err_msg=k)

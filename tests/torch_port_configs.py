@@ -36,10 +36,11 @@ def bench_material(pkg, n):
     return mat
 
 
-def wire_bench(pkg, grid, precond="2level", **eq_kw):
-    """The cavern benchmark's equation on ``grid``, fp32 phase off."""
+def wire_bench(pkg, grid, precond="2level", fp32_phase=False, **eq_kw):
+    """The cavern benchmark's equation on ``grid`` (fp32 phase off unless
+    asked for)."""
     eq = pkg.LinearMomentum(grid, theta=0.5, **eq_kw)
-    eq.set_solver(pkg.SolverSettings(precond=precond, fp32_phase=False,
+    eq.set_solver(pkg.SolverSettings(precond=precond, fp32_phase=fp32_phase,
                                      **SETTINGS))
     n = eq.n_elems
     eq.set_material(bench_material(pkg, n))
@@ -68,6 +69,12 @@ def cavern600_grid(pkg):
     path = pkg.Utils.find_grid("cavern_regular_600_3D",
                                fallback="cavern_proxy_600")
     return pkg.GridHandlerGMSH("geom", path, reorder="band")
+
+
+def box17_grid(pkg):
+    """bench.py's box configuration (its fallback when no cavern mesh is
+    found), in natural order: 5,832 nodes, 29,478 tets."""
+    return pkg.GridBox(Lx=600.0, Ly=600.0, Lz=800.0, nx=17, ny=17, nz=17)
 
 
 def elastic_init(eq):
