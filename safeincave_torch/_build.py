@@ -22,15 +22,19 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signatures: name -> (argtypes, restype)
+# C signatures: name -> (argtypes, restype).  Every pointer, the host
+# parameter struct and the stream included, is a c_void_p: ctypes would
+# pass a bare Python int as a 32-bit int and cut it.
 SIGNATURES = {
     "band_matvec": {
-        "band_matvec_f32": ([_P] * 9 + [_I, _I, _P], ctypes.c_int),
+        # (const BandPlan*, ctv, u, f, stream)
+        "band_matvec_f32": ([_P] * 5, ctypes.c_int),
         "band_matvec_error_string": ([_I], ctypes.c_char_p),
     },
     "dia_matvec": {
-        "dia_matvec_f32": ([_P, _P, _P, _I, _I, _P, _P], ctypes.c_int),
-        "dia_matvec_f64": ([_P, _P, _P, _I, _I, _P, _P], ctypes.c_int),
+        # (const DiaParams*, vals, u, y, stream)
+        "dia_matvec_f32": ([_P] * 5, ctypes.c_int),
+        "dia_matvec_f64": ([_P] * 5, ctypes.c_int),
         "dia_matvec_error_string": ([_I], ctypes.c_char_p),
     },
 }
@@ -103,3 +107,31 @@ def load(name: str) -> ctypes.CDLL:
         getattr(lib, fn).restype = restype
     _loaded[name] = lib
     return lib
+
+
+def kernel(name: str, fn: str):
+    """``(launcher, check)`` of C function ``fn`` in ``csrc/<name>.cu``,
+    resolved once per operator: ``check(err)`` raises RuntimeError with
+    CUDA's message when a launcher returned a non-zero error code."""
+    lib = load(name)
+    launcher = getattr(lib, fn)
+    error_string = getattr(lib, f"{name}_error_string")
+
+    def check(err: int) -> None:
+        if err != 0:
+            raise RuntimeError(f"{fn} launch failed: "
+                               f"{error_string(err).decode()}")
+
+    return launcher, check
+
+
+def stream_query(device):
+    """A function returning the raw handle of PyTorch's current stream on
+    the CUDA ``device``, as an int for ctypes.  It is the query Triton's
+    launcher makes; ``torch.cuda.current_stream`` builds a Python object
+    per call, several microseconds of a launch's host path."""
+    import torch
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    raw = torch._C._cuda_getCurrentRawStream
+    return lambda: raw(index)

@@ -17,15 +17,20 @@ row-granular reduction keyed by (offset, node) runs through the
 deterministic cumsum plan of ``fem/kernels.py`` (``index_add_`` is atomic
 on CUDA, so its sums, and with them the Krylov counts, would not repeat).
 
-Layout: planes ``(Dn*9, N)``, node axis last, row ``9d + 3c + c'``, as in
-the JAX package, without its TPU tile padding of the node axis.  Padding
-contract: slots of node pairs that do not exist hold exact zeros, so reads
-of ``u`` outside ``[0, N)`` multiply zero coefficients and are skipped.
+Layout: planes ``(Dn*9, ld)``, node axis last, row ``9d + 3c + c'``, as in
+the JAX package.  The node stride ``ld`` is N rounded up to a multiple of 4
+(the JAX package rounds up to its 8,192-node TPU tile), so that the CUDA
+kernel reads 4 nodes of a plane row as one 16-byte vector; the columns
+``[N, ld)`` are zero.  Padding contract: slots of node pairs that do not
+exist hold exact zeros, so reads of ``u`` outside ``[0, N)`` multiply zero
+coefficients and are skipped.
 
 :class:`DIAPlan` refuses meshes whose numbering is not offset-structured
 (too many offsets or low slot fill); callers keep the cumsum operator then.
 """
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -145,9 +150,11 @@ class StructuredPlan:
 
 def dia_matvec_plain(vals, u, offsets, n_nodes):
     """Plain PyTorch block-DIA matvec (port of the XLA loop of
-    ``BlockDIA.matvec``): vals (Dn*9, N), u (N, 3) -> (N, 3), reads of u
-    outside [0, N) are zero.  Sums over d, then c' for each component c."""
+    ``BlockDIA.matvec``): vals (Dn*9, >= N; padding columns are ignored),
+    u (N, 3) -> (N, 3), reads of u outside [0, N) are zero.  Sums over d,
+    then c' for each component c."""
     N = n_nodes
+    vals = vals[:, :N]
     offsets = [int(o) for o in offsets]
     lo, hi = max(0, -min(offsets)), max(0, max(offsets))
     up = torch.nn.functional.pad(u.T, (lo, hi))              # (3, lo+N+hi)
@@ -161,16 +168,37 @@ def dia_matvec_plain(vals, u, offsets, n_nodes):
     return torch.stack(acc, dim=-1)
 
 
+# offsets the CUDA kernel takes in its parameter block (csrc/dia_matvec.cu)
+MAX_OFFSETS = 96
+
+
+class _DiaParams(ctypes.Structure):
+    """Mirror of ``struct DiaParams`` in csrc/dia_matvec.cu, field by
+    field."""
+    _fields_ = [("n", ctypes.c_int), ("ld", ctypes.c_int),
+                ("dn", ctypes.c_int), ("off", ctypes.c_int * MAX_OFFSETS)]
+
+
+def padded_stride(n_nodes: int) -> int:
+    """Node stride of the planes: N rounded up to a multiple of 4."""
+    return -(-n_nodes // 4) * 4
+
+
 class BlockDIA:
     """Assembled offset operator for one mesh, on the kernel's device.
 
-    ``launches`` counts CUDA kernel launches (one per :meth:`matvec` on
-    CUDA tensors)."""
+    ``launches`` counts CUDA kernel launches (one per application of an
+    :meth:`operator` on CUDA tensors)."""
 
-    def __init__(self, kern, max_offsets: int = 96, min_fill: float = 0.4):
+    def __init__(self, kern, max_offsets: int = MAX_OFFSETS,
+                 min_fill: float = 0.4):
         self.plan = DIAPlan(kern.conn_np, kern.n_nodes,
                             max_offsets=max_offsets, min_fill=min_fill)
+        if self.plan.Dn > MAX_OFFSETS:
+            raise ValueError(f"{self.plan.Dn} offsets: the DIA kernel takes "
+                             f"at most {MAX_OFFSETS}")
         self.n_nodes = kern.n_nodes
+        self.ld = padded_stride(kern.n_nodes)
         self.device = kern.conn.device     # carries the CUDA index
         self._geom = kern.geom
         try:
@@ -179,8 +207,8 @@ class BlockDIA:
         except ValueError:
             self._sp = None
         self.offsets = self.plan.offsets.tolist()
-        self._offsets32 = torch.as_tensor(
-            self.plan.offsets.astype(np.int32), device=self.device)
+        self._params = _DiaParams(self.n_nodes, self.ld, self.plan.Dn,
+                                  (ctypes.c_int * MAX_OFFSETS)(*self.offsets))
         self._slot_plan = None             # general assembly, built on use
         self.launches = 0
 
@@ -190,7 +218,8 @@ class BlockDIA:
         return self._sp is not None
 
     def assemble(self, CT_soa):
-        """CT (6, 6, E) -> offset planes (Dn*9, N) in CT's dtype."""
+        """CT (6, 6, E) -> offset planes (Dn*9, ld) in CT's dtype, zero in
+        the padding columns."""
         p = self.plan
         gn, vol = self._geom(CT_soa.dtype)
         if self._sp is not None:
@@ -201,8 +230,9 @@ class BlockDIA:
             self._slot_plan = ScatterPlan.from_keys(
                 p.row_slot, p.Dn * p.n_nodes, self.device)
         flat = segment_sum(v.T, self._slot_plan)              # (9, Dn*N)
-        return (flat.reshape(9, p.Dn, p.n_nodes).transpose(0, 1)
-                .reshape(p.Dn * 9, p.n_nodes))
+        planes = (flat.reshape(9, p.Dn, p.n_nodes).transpose(0, 1)
+                  .reshape(p.Dn * 9, p.n_nodes))
+        return torch.nn.functional.pad(planes, (0, self.ld - p.n_nodes))
 
     def _assemble_structured(self, v):
         """Scatter-free assembly from comp rows (144, E).
@@ -225,48 +255,62 @@ class BlockDIA:
         V = pad(V.reshape(864, nx * (ny + 1) * (nz + 1)), (0, sx))  # (864, N)
         dmax = sx + sy + 1
         Vp = pad(V, (dmax, 0))
-        planes = torch.zeros((p.Dn, 9, N), dtype=v.dtype, device=v.device)
+        planes = torch.zeros((p.Dn, 9, self.ld), dtype=v.dtype,
+                             device=v.device)
         for (t, a, b, d_idx, (di, dj, dk)) in sp.table:
             delta = di * sx + dj * sy + dk
             r0 = t * 144 + (4 * a + b) * 9
-            planes[d_idx] += Vp[r0:r0 + 9, dmax - delta:dmax - delta + N]
-        return planes.reshape(p.Dn * 9, N)
+            planes[d_idx, :, :N] += Vp[r0:r0 + 9,
+                                       dmax - delta:dmax - delta + N]
+        return planes.reshape(p.Dn * 9, self.ld)
 
     # ------------------------------------------------------------------ #
     def matvec(self, vals, u):
         """Stiffness action (N, 3) -> (N, 3) in the dtype of ``vals`` (f32
-        or f64); ``u`` must have the same dtype."""
-        if u.device.type == "cpu":
-            if u.dtype != vals.dtype:
-                raise ValueError(f"dia_matvec: u is {u.dtype}, planes "
-                                 f"{vals.dtype}")
-            return dia_matvec_plain(vals, u, self.offsets, self.n_nodes)
-        return self._launch(vals, u)
+        or f64); ``u`` must have the same dtype.  A solver applies the same
+        planes many times through :meth:`operator`."""
+        return self.operator(vals)(u)
 
-    def _launch(self, vals, u):
-        from .._build import load
-        p, N = self.plan, self.n_nodes
-        dtype = vals.dtype
+    def operator(self, vals):
+        """The action ``u -> A u`` of the planes ``vals`` (from
+        :meth:`assemble`, or its cast).  CPU planes give the plain twin.
+        CUDA planes are checked here, once (device, dtype, shape,
+        contiguity); each application checks ``u`` alone and launches the
+        kernel."""
+        N, dtype = self.n_nodes, vals.dtype
+        if vals.device.type == "cpu":
+            def plain(u):
+                if u.device.type != "cpu" or u.dtype != dtype:
+                    raise ValueError(f"dia_matvec: u is {u.dtype} on "
+                                     f"{u.device}, planes {dtype} on cpu")
+                return dia_matvec_plain(vals, u, self.offsets, N)
+            return plain
+        from .. import _build
         if dtype not in (F32, F64):
             raise ValueError(f"dia_matvec: no kernel for {dtype}")
-        for name, t, shape in (("vals", vals, (p.Dn * 9, N)),
-                               ("u", u, (N, 3))):
-            if t.device != self.device or t.dtype != dtype or \
-                    tuple(t.shape) != shape or not t.is_contiguous():
+        shape = (self.plan.Dn * 9, self.ld)
+        if vals.device != self.device or tuple(vals.shape) != shape or \
+                not vals.is_contiguous() or vals.data_ptr() % 16:
+            raise ValueError(
+                f"dia_matvec: planes must be a contiguous, 16-byte aligned "
+                f"{shape} tensor on {self.device}, got {tuple(vals.shape)} "
+                f"on {vals.device}")
+        name = "dia_matvec_f32" if dtype == F32 else "dia_matvec_f64"
+        fn, check = _build.kernel("dia_matvec", name)
+        stream = _build.stream_query(self.device)
+        dev, params = self.device, ctypes.addressof(self._params)
+
+        def launch(u):
+            if u.device != dev or u.dtype != dtype or u.shape != (N, 3) or \
+                    not u.is_contiguous():
                 raise ValueError(
-                    f"dia_matvec: {name} must be a contiguous {shape} "
-                    f"{dtype} tensor on {self.device}, got "
-                    f"{tuple(t.shape)} {t.dtype} on {t.device}")
-        if self.device.type != "cuda":
-            raise ValueError(f"dia_matvec: no kernel for {self.device}")
-        lib = load("dia_matvec")
-        fn = lib.dia_matvec_f32 if dtype == F32 else lib.dia_matvec_f64
-        y = torch.empty((N, 3), dtype=dtype, device=self.device)
-        stream = torch.cuda.current_stream(self.device).cuda_stream
-        err = fn(vals.data_ptr(), u.data_ptr(), self._offsets32.data_ptr(),
-                 p.Dn, N, y.data_ptr(), stream)
-        if err != 0:
-            msg = lib.dia_matvec_error_string(err).decode()
-            raise RuntimeError(f"dia_matvec launch failed: {msg}")
-        self.launches += 1
-        return y
+                    f"dia_matvec: u must be a contiguous ({N}, 3) {dtype} "
+                    f"tensor on {dev}, got {tuple(u.shape)} {u.dtype} on "
+                    f"{u.device}")
+            y = torch.empty((N, 3), dtype=dtype, device=dev)
+            check(fn(params, vals.data_ptr(), u.data_ptr(), y.data_ptr(),
+                     stream()))
+            self.launches += 1
+            return y
+
+        return launch

@@ -81,7 +81,8 @@ class SolverSettings:
 
     def fp32_enabled(self, device=None) -> bool:
         """Whether the f32 sweep runs for an equation on ``device`` (default:
-        :func:`default_device`); "auto" means on CUDA only."""
+        :func:`default_device`, which raises without a CUDA device); "auto"
+        means on CUDA only."""
         if self.fp32_phase == "auto":
             dev = torch.device(device) if device is not None \
                 else default_device()
@@ -223,7 +224,7 @@ def _f64_action(kern, CT_hi):
     dia = kern.dia
     if dia is not None and not dia.structured:
         planes = dia.assemble(CT_hi)
-        return (lambda x: dia.matvec(planes, x)), planes
+        return dia.operator(planes), planes
     return (lambda x: kern.matvec(CT_hi, x)), None
 
 
@@ -233,15 +234,12 @@ def _f32_action(kern, CT, planes_hi):
     structured box, the band kernel, or the f32 cumsum matvec."""
     dia = kern.dia
     if planes_hi is not None:
-        planes = planes_hi.to(F32)
-        return lambda x: dia.matvec(planes, x)
+        return dia.operator(planes_hi.to(F32))
     CT_lo = kern.prep(CT.to(F32))
     if dia is not None:
-        planes = dia.assemble(CT_lo)
-        return lambda x: dia.matvec(planes, x)
+        return dia.operator(dia.assemble(CT_lo))
     if kern.band is not None:
-        ctv = kern.band.pack_ct(CT_lo)
-        return lambda x: kern.band.matvec(ctv, x)
+        return kern.band.operator(kern.band.pack_ct(CT_lo))
     return lambda x: kern.matvec(CT_lo, x)
 
 

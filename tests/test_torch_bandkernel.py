@@ -8,8 +8,14 @@ interpret mode and against the JAX f32 ``MomentumKernel.matvec`` at
 (strain, internal force, matvec, batched 6x6 apply, body force) agree at
 1e-12 max|ref|: only the summation order of the cumsum scatter differs.
 The CUDA kernel itself runs only on a GPU: its test needs the card and
-skips here.
+skips here.  What surrounds it does run here: the tile plan of its two-level
+sum (``BandTilePlan``) is held to its invariants on cavern_proxy_600 and a
+band-ordered box, and a numpy emulation of the kernel's sum, table by table,
+to the plain twin at 1e-6 max|ref| in f32 and 1e-13 in f64 (the same element
+maths; only the order of the node sums differs).
 """
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -21,7 +27,10 @@ from safeincave_tpu.fem.bandplan import BandPlan
 from safeincave_tpu.fem.kernels import MomentumKernel as JaxKernel
 from safeincave_tpu.mesh.boxgen import GridBox as JaxGridBox
 from safeincave_tpu.mesh.reorder import reordered_grid as jax_reordered
-from safeincave_torch.fem.bandkernel import BandMatvec, band_matvec_plain
+import safeincave_torch as st
+import torch_port_configs as cfg
+from safeincave_torch.fem.bandkernel import (BandMatvec, BandTilePlan,
+                                             band_matvec_plain, tile_size)
 from safeincave_torch.fem.kernels import MomentumKernel
 from safeincave_torch.mesh.boxgen import GridBox
 from safeincave_torch.mesh.reorder import reordered_grid
@@ -142,6 +151,131 @@ def test_plain_twin_is_the_f32_element_operator(grids):
     ref = kern.matvec(CT, u)
     np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0,
                                atol=2e-5 * ref.abs().max().item())
+
+
+def _plan_grid(name):
+    """cavern_proxy_600 (band order, as the main path runs it), a
+    band-ordered GridBox nx=4, and that box with its elements shuffled (the
+    kernel is right for any element order, fast for band order)."""
+    if name == "cavern600":
+        return cfg.cavern600_grid(st)
+    g = reordered_grid(GridBox(nx=4, ny=4, nz=4), method="band")[0]
+    if name == "box4_shuffled":
+        order = np.random.default_rng(9).permutation(g.n_elems)
+        return SimpleNamespace(conn=np.asarray(g.conn)[order],
+                               n_nodes=g.n_nodes, n_elems=g.n_elems,
+                               grid=g, order=order)
+    return g
+
+
+def _tile_of_local(tp):
+    """(tile, index within the tile) of every local node."""
+    L = np.arange(len(tp.lnode))
+    tile = np.searchsorted(tp.tile_lo, L, side="right") - 1
+    return tile, L - tp.tile_lo[tile]
+
+
+@pytest.mark.parametrize("name", ["cavern600", "box4", "box4_shuffled"])
+def test_tile_plan_invariants(name):
+    """Every (element, corner) is summed exactly once, into a local node of
+    its own tile that stands for its own node; every node's partials lie
+    contiguous and in tile order; the padding of the contribution table is
+    zero."""
+    g = _plan_grid(name)
+    conn = np.asarray(g.conn, dtype=np.int64)
+    E, T = conn.shape[0], 128
+    tp = BandTilePlan(conn, g.n_nodes, T)
+    assert tp.T == T == tile_size(E) and tp.n_tiles == -(-E // T)
+    assert len(tp.contrib) == 4 * T * tp.n_tiles
+    assert not tp.contrib[4 * E:].any()
+    tile = np.arange(E) // T
+    # corners: local ids of the element's own tile, standing for its nodes
+    assert (tp.corner >= 0).all()
+    assert (tp.corner < np.diff(tp.tile_lo)[tile][:, None]).all()
+    np.testing.assert_array_equal(tp.lnode[tp.tile_lo[tile][:, None]
+                                           + tp.corner], conn)
+    # contributions: each (element, corner) once, grouped by local node
+    l_tile, l_in = _tile_of_local(tp)
+    seen = []
+    for L in range(len(tp.lnode)):
+        t = l_tile[L]
+        k0 = tp.lend[L - 1] if l_in[L] else 0
+        q = tp.contrib[4 * T * t + k0:4 * T * t + tp.lend[L]]
+        assert len(q) > 0 and (np.diff(q) > 0).all()
+        e, a = T * t + q // 4, q % 4
+        assert (conn[e, a] == tp.lnode[L]).all()
+        seen.append(4 * e + a)
+    np.testing.assert_array_equal(np.sort(np.concatenate(seen)),
+                                  np.arange(4 * E))
+    # partial slots: a permutation; each node's slots contiguous, in tile
+    # order, and only its own local nodes
+    np.testing.assert_array_equal(np.sort(tp.dst), np.arange(len(tp.lnode)))
+    slot_local = np.empty_like(tp.dst)
+    slot_local[tp.dst] = np.arange(len(tp.lnode))
+    for n in range(g.n_nodes):
+        Ls = slot_local[tp.pstart[n]:tp.pstart[n + 1]]
+        assert (tp.lnode[Ls] == n).all()
+        assert (np.diff(l_tile[Ls]) > 0).all()
+    assert tp.pstart[-1] == len(tp.lnode)
+    assert tp.max_local == np.diff(tp.tile_lo).max() <= 4 * T
+
+
+def _emulate(tp, ctv, gN, u):
+    """The band kernel's two-level sum in numpy, table by table: each
+    element's forces from u staged at its tile's local nodes (corner ids),
+    one partial per local node summed in the plan's order into its slot, and
+    per node its partials in tile order."""
+    E, T = tp.n_elems, tp.T
+    tile = np.arange(E) // T
+    ue = u[tp.lnode[tp.tile_lo[tile][:, None] + tp.corner]]      # (E, 4, 3)
+    g = gN.reshape(4, 3, E).transpose(2, 0, 1)                    # (E, 4, 3)
+    grad = np.einsum("eai,eaj->eij", ue, g)
+    eps = np.stack([grad[:, 0, 0], grad[:, 1, 1], grad[:, 2, 2],
+                    0.5 * (grad[:, 0, 1] + grad[:, 1, 0]),
+                    0.5 * (grad[:, 0, 2] + grad[:, 2, 0]),
+                    0.5 * (grad[:, 1, 2] + grad[:, 2, 1])], axis=1)
+    sig = np.einsum("mke,ek->em", ctv.reshape(6, 6, E), eps)
+    fe = np.einsum("ecj,eaj->eac", sig[:, [[0, 3, 4], [3, 1, 5], [4, 5, 2]]],
+                   g)                                             # (E, 4, 3)
+    l_tile, l_in = _tile_of_local(tp)
+    partials = np.zeros((len(tp.lnode), 3), dtype=u.dtype)
+    for L in range(len(tp.lnode)):
+        base = 4 * T * l_tile[L]
+        q = tp.contrib[base + (tp.lend[L - 1] if l_in[L] else 0):
+                       base + tp.lend[L]]
+        for k in q:
+            partials[tp.dst[L]] += fe[T * l_tile[L] + k // 4, k % 4]
+    f = np.zeros_like(u)
+    for n in range(tp.n_nodes):
+        for p in partials[tp.pstart[n]:tp.pstart[n + 1]]:
+            f[n] += p
+    return f
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float32, 1e-6),
+                                       (np.float64, 1e-13)])
+@pytest.mark.parametrize("name", ["cavern600", "box4", "box4_shuffled"])
+def test_tile_plan_two_level_sum(name, dtype, tol):
+    """The kernel's sum, emulated in numpy on the plan's tables, against
+    band_matvec_plain (the cumsum scatter) on the same inputs."""
+    g = _plan_grid(name)
+    grid = getattr(g, "grid", g)
+    kern = MomentumKernel(grid, "cpu")
+    tdt = torch.float32 if dtype == np.float32 else torch.float64
+    gN, vol = kern.geom(tdt)
+    rng = np.random.default_rng(10)
+    CT = torch.as_tensor(_soa32(_random_ct(grid.n_elems, rng)), dtype=tdt)
+    ctv = (CT * vol).reshape(36, -1)
+    u = torch.as_tensor(rng.normal(size=(grid.n_nodes, 3)), dtype=tdt)
+    ref = band_matvec_plain(ctv, gN.reshape(12, -1), kern.conn, kern.plan,
+                            u).numpy()
+    order = getattr(g, "order", np.arange(grid.n_elems))
+    tp = BandTilePlan(np.asarray(grid.conn)[order], grid.n_nodes)
+    got = _emulate(tp, ctv.numpy()[:, order], gN.reshape(12, -1).numpy()
+                   [:, order], u.numpy())
+    assert got.dtype == dtype
+    np.testing.assert_allclose(got, ref, rtol=0,
+                               atol=tol * np.abs(ref).max())
 
 
 @pytest.mark.gpu

@@ -5,6 +5,9 @@ Inputs are made from a numpy seed and handed to both packages on small
 natural-order GridBoxes.  Tolerances:
 
 - plan tables: equal;
+- the padded layout: the port pads the planes' node axis to a multiple of 4
+  (the CUDA kernel's 16-byte loads), the JAX package to its TPU tile; the
+  first N columns agree at 1e-12 and every padding column is exactly zero;
 - element rows and assemblies, f64: 1e-12 max|ref| (one batched product
   against the JAX package's elementwise sums; the general assembly reduces
   through the cumsum plan, whose prefix sums round at ~1e-14);
@@ -34,7 +37,7 @@ from safeincave_tpu.fem.kernels import MomentumKernel as JaxKernel
 from safeincave_torch.fem.blockell import (element_block_comp_rows,
                                            element_block_rows)
 from safeincave_torch.fem.dia import (BlockDIA, DIAPlan, StructuredPlan,
-                                      dia_matvec_plain)
+                                      dia_matvec_plain, padded_stride)
 from safeincave_torch.fem.kernels import MomentumKernel
 from safeincave_torch.fem.momentum import select_backend
 from safeincave_torch.mesh.boxgen import GridBox
@@ -99,22 +102,63 @@ def test_element_rows_match_jax(pair, layout):
 
 @pytest.mark.parametrize("path", ["structured", "scatter"])
 def test_assembly_matches_jax(pair, path):
-    """Both assemblies against JAX's ``BlockDIA.assemble`` (its first N
-    columns: the port drops the TPU tile padding), and against each
+    """Both assemblies against JAX's ``BlockDIA.assemble`` (the first N
+    columns: the two packages pad to different strides), and against each
     other."""
     g, kern, _, _, jdia = pair
+    N = g.n_nodes
     CT = _random_ct(g.n_elems, 1)
-    want = np.asarray(jdia.assemble(jnp.asarray(CT)))[:, :g.n_nodes]
+    want = np.asarray(jdia.assemble(jnp.asarray(CT)))[:, :N]
     dia = BlockDIA(kern)
     if path == "scatter":
         dia._sp = None
     got = dia.assemble(torch.as_tensor(CT))
-    assert tuple(got.shape) == (15 * 9, g.n_nodes)
-    _close(got, want, 1e-12, path)
+    assert tuple(got.shape) == (15 * 9, padded_stride(N))
+    _close(got[:, :N], want, 1e-12, path)
     other = BlockDIA(kern)
     if path == "structured":
         other._sp = None
     _close(got, other.assemble(torch.as_tensor(CT)), 1e-12, "other path")
+
+
+@pytest.mark.parametrize("path", ["structured", "scatter"])
+def test_padded_layout_matches_jax(path):
+    """The planes' node axis is padded with zero columns: by the port to a
+    multiple of 4 (N = 125 here, so 3 columns), by the JAX package to its
+    TPU tile (Npad).  The first N columns agree and every padding column is
+    exactly zero (in f32 too, whose values the f32 kernel tests hold)."""
+    dims = dict(Lx=1.0, Ly=1.0, Lz=1.0, nx=4, ny=4, nz=4)
+    g, jk = GridBox(**dims), JaxKernel(sc.GridBox(**dims))
+    N = g.n_nodes
+    dia, jdia = BlockDIA(MomentumKernel(g, "cpu")), JaxBlockDIA(jk)
+    if path == "scatter":
+        dia._sp = None
+    assert dia.ld == padded_stride(N) == 128 and dia.ld % 4 == 0
+    CT = _random_ct(g.n_elems, 11)
+    want = np.asarray(jdia.assemble(jnp.asarray(CT)))
+    assert want.shape[1] >= dia.ld and not want[:, N:].any()
+    for dtype in (torch.float64, torch.float32):
+        got = dia.assemble(torch.as_tensor(CT, dtype=dtype))
+        assert got.dtype == dtype and tuple(got.shape) == (135, dia.ld)
+        assert got.is_contiguous() and not got[:, N:].any()
+        if dtype == torch.float64:
+            _close(got[:, :N], want[:, :N], 1e-12, path)
+
+
+def test_plain_matvec_reads_no_padding():
+    """dia_matvec_plain on the padded planes gives its result on their first
+    N columns (to 1e-15; it reads no padding column)."""
+    g = GridBox(Lx=1.0, Ly=1.0, Lz=1.0, nx=4, ny=4, nz=4)
+    dia = BlockDIA(MomentumKernel(g, "cpu"))
+    vals = dia.assemble(torch.as_tensor(_random_ct(g.n_elems, 12)))
+    assert vals.shape[1] > g.n_nodes
+    vals[:, g.n_nodes:] = 1e300          # any padding value is ignored
+    u = torch.as_tensor(np.random.default_rng(13).normal(size=(g.n_nodes,
+                                                               3)))
+    want = dia_matvec_plain(vals[:, :g.n_nodes].contiguous(), u,
+                            dia.offsets, g.n_nodes)
+    _close(dia_matvec_plain(vals, u, dia.offsets, g.n_nodes), want, 1e-15,
+           "padded vs first N columns")
 
 
 def test_plain_matvec_f64_matches_jax_and_cumsum(pair):
@@ -219,7 +263,8 @@ def test_dia_solver_matches_jax(branch):
     out = {}
     for name, pkg in (("jax", sc), ("port", st)):
         eq = cfg.wire_bench(pkg, pkg.GridBox(Lx=600.0, Ly=600.0, Lz=800.0,
-                                             nx=3, ny=3, nz=3))
+                                             nx=3, ny=3, nz=3),
+                             device="cpu")
         eq.enable_dia_matvec()
         if branch == "general":
             eq.kernel.dia._sp = None

@@ -1,0 +1,111 @@
+"""The CUDA kernels of safeincave_torch on the card, at the shapes that
+chip_smoke.py measures: the band kernel at cavern_proxy_600 (the main path)
+and at the band-ordered GridBox nx=44 (bench.py's scale size), the block-DIA
+kernel at nx=17 (the box path) and nx=44 in f32, and at nx=17 in f64.
+
+Each kernel against its plain twin on a random energy-symmetric tangent
+(band 2e-5 max|ref|, DIA f32 1e-5 and f64 1e-12: the sums run in another
+order), bitwise repeatable, energy-symmetric (v.Au = u.Av), one counted
+launch per call, and a refusal of a tensor it cannot take.
+
+The file imports no JAX, so it runs on the machine with the card:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
+
+(``--noconftest``: tests/conftest.py sets JAX up for the rest of the
+suite.)  Without a CUDA device every test skips.
+"""
+import numpy as np
+import pytest
+import torch
+
+import safeincave_torch as st
+import torch_port_configs as cfg
+from safeincave_torch.fem.bandkernel import BandMatvec, band_matvec_plain
+from safeincave_torch.fem.dia import BlockDIA, dia_matvec_plain
+from safeincave_torch.fem.kernels import MomentumKernel
+from safeincave_torch.mesh.reorder import reordered_grid
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU, see the module "
+                    "docstring)")
+    return torch.device("cuda")
+
+
+def _box(nx):
+    return st.GridBox(Lx=600.0, Ly=600.0, Lz=800.0, nx=nx, ny=nx, nz=nx)
+
+
+def _random_ct(E, rng, dtype, device):
+    """Random energy-symmetric tangent (6, 6, E): A is then symmetric."""
+    M = rng.normal(size=(E, 6, 6))
+    CT = 0.5 * (M + np.transpose(M, (0, 2, 1))) + 8.0 * np.eye(6)
+    w = np.diag([1.0, 1, 1, 2, 2, 2])
+    CT = 0.5 * (CT + np.linalg.inv(w) @ np.transpose(CT, (0, 2, 1)) @ w)
+    return torch.as_tensor(np.transpose(CT, (1, 2, 0)), dtype=dtype,
+                           device=device)
+
+
+def _hold(op, counter, plain, u, v, tol, sym_tol):
+    """op (a wrapper's operator) against ``plain`` on u: max|err| within
+    tol max|ref|, bitwise repeatable, v.Au = u.Av, 3 counted launches."""
+    n0 = counter.launches
+    got, again, Av = op(u), op(u), op(v)
+    torch.cuda.synchronize()
+    assert counter.launches == n0 + 3
+    ref = plain(u)
+    assert torch.equal(got, again)
+    assert (got - ref).abs().max().item() <= tol * ref.abs().max().item()
+    a = (v.double() * got.double()).sum().item()
+    b = (u.double() * Av.double()).sum().item()
+    assert abs(a - b) <= sym_tol * abs(a)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["cavern600", "box44_band"])
+def test_band_kernel(cuda, shape):
+    grid = cfg.cavern600_grid(st) if shape == "cavern600" else \
+        reordered_grid(_box(44), "band")[0]
+    rng = np.random.default_rng(0)
+    band = BandMatvec(MomentumKernel(grid, cuda))
+    ctv = band.pack_ct(_random_ct(grid.n_elems, rng, torch.float32, cuda))
+    u, v = (torch.as_tensor(rng.normal(size=(grid.n_nodes, 3)),
+                            dtype=torch.float32, device=cuda)
+            for _ in range(2))
+    op = band.operator(ctv)
+    _hold(op, band, lambda x: band_matvec_plain(ctv, band.gN, band.conn,
+                                                band.plan, x),
+          u, v, 2e-5, 1e-5)
+    with pytest.raises(ValueError):
+        band.operator(ctv.double())
+    with pytest.raises(ValueError):
+        op(u.double())
+    with pytest.raises(ValueError):
+        op(u.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nx,dtype,tol", [(17, torch.float32, 1e-5),
+                                          (44, torch.float32, 1e-5),
+                                          (17, torch.float64, 1e-12)])
+def test_dia_kernel(cuda, nx, dtype, tol):
+    g = _box(nx)
+    rng = np.random.default_rng(1)
+    dia = BlockDIA(MomentumKernel(g, cuda))
+    assert dia.structured and dia.ld % 4 == 0
+    vals = dia.assemble(_random_ct(g.n_elems, rng, dtype, cuda))
+    assert not vals[:, g.n_nodes:].any()
+    u, v = (torch.as_tensor(rng.normal(size=(g.n_nodes, 3)), dtype=dtype,
+                            device=cuda) for _ in range(2))
+    op = dia.operator(vals)
+    _hold(op, dia, lambda x: dia_matvec_plain(vals, x, dia.offsets,
+                                              g.n_nodes),
+          u, v, tol, 1e-5 if dtype == torch.float32 else 1e-12)
+    other = torch.float64 if dtype == torch.float32 else torch.float32
+    with pytest.raises(ValueError):
+        op(u.to(other))
+    with pytest.raises(ValueError):
+        dia.operator(vals[:, 1:])                  # not the padded layout

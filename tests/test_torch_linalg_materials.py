@@ -17,6 +17,7 @@ import jax.numpy as jnp
 
 import safeincave_tpu as sc
 import safeincave_torch as st
+import torch_port_configs as cfg
 from safeincave_tpu.linalg import inv3x3 as jax_inv3x3
 from safeincave_tpu.linalg import inv6x6_fast as jax_inv6x6_fast
 from safeincave_torch.linalg import inv3x3, inv6x6_fast
@@ -136,10 +137,11 @@ def _stress(rng):
 
 
 def _elements(pkg, p):
+    dev = cfg.on(pkg, "cpu")
     return {
-        "viscoelastic": pkg.Viscoelastic(*p["kv"]),
-        "dislocation": pkg.DislocationCreep(*p["ds"]),
-        "desai": pkg.ViscoplasticDesai(**p["desai"]),
+        "viscoelastic": pkg.Viscoelastic(*p["kv"], **dev),
+        "dislocation": pkg.DislocationCreep(*p["ds"], **dev),
+        "desai": pkg.ViscoplasticDesai(**p["desai"], **dev),
     }
 
 
@@ -252,7 +254,7 @@ def test_spring_matches_jax(setup):
 
 
 def _material(pkg, p):
-    mat = pkg.Material(E_N)
+    mat = pkg.Material(E_N, **cfg.on(pkg, "cpu"))
     mat.add_to_elastic(pkg.Spring(102e9 * np.ones(E_N), 0.3 * np.ones(E_N)))
     for e in _elements(pkg, p).values():
         mat.add_to_non_elastic(e)

@@ -74,13 +74,13 @@ def runs():
     from the JAX package's post-elastic state (interop)."""
     out = {}
     for name, pkg in (("jax", sc), ("port", st)):
-        eq = cfg.wire_bench(pkg, _box(pkg))
+        eq = cfg.wire_bench(pkg, _box(pkg), device="cpu")
         cfg.elastic_init(eq)
         r = dict(u_el=_to_np(eq.u), kry_el=eq.solver_stats[0])
         if pkg is sc:
             jax_elastic = numpy_state(eq)
         out[name] = _record(eq, _steps(eq), r)
-    eq = cfg.wire_bench(st, _box(st))
+    eq = cfg.wire_bench(st, _box(st), device="cpu")
     load_numpy_state(eq, jax_elastic)
     out["port_from_jax"] = _record(eq, _steps(eq), {})
     return out
@@ -134,7 +134,7 @@ def test_elastic_solver_paths(precision, precond):
     counts within 10% (module docstring)."""
     out = {}
     for name, pkg in (("jax", sc), ("port", st)):
-        eq = cfg.wire_bench(pkg, _box(pkg, nx=3))
+        eq = cfg.wire_bench(pkg, _box(pkg, nx=3), device="cpu")
         eq.set_solver(pkg.SolverSettings(precond=precond, precision=precision,
                                          fp32_phase=False, **cfg.SETTINGS))
         eq.bc.update_dirichlet(0.0)
@@ -150,7 +150,7 @@ def test_band_wired_solver_matches_default():
     the f32 Krylov operator reproduces the default cumsum path; the f64
     defect correction pins the converged solution."""
     def run(band):
-        eq = cfg.wire_bench(st, _box(st, nx=3))
+        eq = cfg.wire_bench(st, _box(st, nx=3), device="cpu")
         if band:
             eq.enable_band_matvec()
         cfg.elastic_init(eq)
@@ -168,11 +168,11 @@ def test_band_wired_solver_matches_default():
 # -- golden triaxial (tests/golden_configs.py twin, port API) --------------- #
 def _build_triaxial_port(nx=3):
     grid = st.GridBox(nx=nx, ny=nx, nz=nx)
-    eq = st.LinearMomentum(grid, theta=0.5)
+    eq = st.LinearMomentum(grid, theta=0.5, device="cpu")
     eq.set_solver(st.SolverSettings(method="bicgstab", rtol=1e-12,
                                     max_it=500))
     n = eq.n_elems
-    eq.set_material(cfg.bench_material(st, n))
+    eq.set_material(cfg.bench_material(st, n, "cpu"))
     eq.set_T0(298.0 * np.ones(n))
     eq.set_T(298.0 * np.ones(n))
     eq.build_body_force([0.0, 0.0, 0.0])
@@ -217,7 +217,7 @@ def test_dense_preconditioner_matches_jax():
     conditioning of the operator, not bitwise."""
     g_p, g_j = _box(st, nx=2), _box(sc, nx=2)
     E, N = g_p.n_elems, g_p.n_nodes
-    C = cfg.bench_material(st, E).C.numpy()
+    C = cfg.bench_material(st, E, "cpu").C.numpy()
     mask = np.ones((N, 3))
     nodes = np.unique(g_p.tris[g_p.get_boundary_tags("BOTTOM")])
     mask[nodes] = 0.0
@@ -261,7 +261,7 @@ def fp32_runs():
                             ("port_f64", st, False)):
         eq = cfg.wire_bench(pkg, pkg.GridBox(Lx=600.0, Ly=600.0, Lz=800.0,
                                              nx=3, ny=3, nz=3),
-                            fp32_phase=fp32)
+                            fp32_phase=fp32, device="cpu")
         eq.enable_dia_matvec()
         cfg.elastic_init(eq)
         rows = eq.solve_time_steps(
@@ -292,7 +292,8 @@ def test_fp32_disable_skips_the_sweep():
     """A true ``_fp32_disable`` (the dt-retry flag) runs the step as the
     pure-f64 path."""
     eq = cfg.wire_bench(st, st.GridBox(Lx=600.0, Ly=600.0, Lz=800.0, nx=2,
-                                       ny=2, nz=2), fp32_phase=True)
+                                       ny=2, nz=2), fp32_phase=True,
+                        device="cpu")
     cfg.elastic_init(eq)
     eq._fp32_disable = True
     eq.solve_time_step(FP32_DT, FP32_DT)
@@ -306,7 +307,7 @@ def test_fp32_disable_skips_the_sweep():
 def test_cavern600_golden_cpu():
     """The port on the CPU against tests/golden/torch_port_cavern600.npz
     (JAX, same 2level configuration): ~1 min on one thread."""
-    eq = cfg.wire_bench(st, cfg.cavern600_grid(st))
+    eq = cfg.wire_bench(st, cfg.cavern600_grid(st), device="cpu")
     cfg.elastic_init(eq)
     with np.load(os.path.join(HERE, "golden",
                               "torch_port_cavern600.npz")) as z:
@@ -325,7 +326,8 @@ def test_box17_golden_cpu():
     The f64 finish pins the fields: elastic u at 1e-8, u and sig_v after 3
     steps at 2e-7 max|ref| (test_fp32_phase_fields), equal converged flags;
     fixed-point counts may differ where f32 rounding moves a sweep."""
-    eq = cfg.wire_bench(st, cfg.box17_grid(st), fp32_phase=True)
+    eq = cfg.wire_bench(st, cfg.box17_grid(st), fp32_phase=True,
+                        device="cpu")
     eq.enable_dia_matvec()
     assert eq.kernel.dia.structured
     cfg.elastic_init(eq)
