@@ -51,6 +51,35 @@ Phases, one line each; any failure raises and the exit code is non-zero:
              enable_dia_matvec, 2level, fp32_phase=True): elastic u at 1e-8
              relative, u and sig_v after 3 steps at 1e-6 max|ref|, equal
              converged flags.
+8. sim     - examples/mechanics/4_cavern's workflow through the port's
+             ``Simulator_M`` on the band-ordered cavern600 mesh
+             (``torch_port_configs.cavern_example``: Spring + creep,
+             gravity, rollers, overburden and cavern pressure; precond
+             "auto" -> dense, band kernel, fp32 phase off).  Stage 1,
+             equilibrium 24 h at 2 h with u and p_elems saved every step
+             (the per-step flow); stage 2, operation 48 h at 1 h with u,
+             p_elems and q_elems saved every 6 steps (fused chunks),
+             StepMetrics to a file and a checkpoint every 12 steps.  The
+             outputs are ``SaveFields`` when h5py imports, else an in-memory
+             sink of the same protocol (``MemorySink``); either way the
+             saves must land at the expected times.  Every step converged,
+             the band kernel launched in each stage, final fields within
+             1e-6 max|ref| of tests/golden/torch_port_sim_cavern600.npz,
+             equal converged flags, fixed-point counts within +-1; the
+             smoother repeats bitwise; the last checkpoint, loaded into a
+             fresh equation, runs 2 more steps to the straight run's state
+             bit for bit.  Prints ms/step per stage, the driver's share of
+             stage 2 (time outside ``solve_time_steps``), band launches per
+             step and one checkpoint's save time.
+9. json    - the JSON driver: ``safeincave_torch.app.sim_cli.main`` in a
+             child process on the card (``--json-child``), on
+             ``torch_port_configs.box_case`` over ``box_mesh(600, 600, 800,
+             nx=17)`` written with the port's ``write_msh`` (natural order:
+             block-DIA auto-selected, dense preconditioner, f32 sweep on).
+             The child swaps in ``MemorySink`` for ``SaveFields`` when h5py
+             is missing and prints its DIA launch count on its last line.
+             Exit 0, DIA launched, operation-stage u and p_elems within
+             1e-6 max|ref| of tests/golden/torch_port_json_box17.npz.
 
 The last lines are the kernel JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  There is no CPU fallback: without a CUDA
@@ -64,11 +93,16 @@ the kernels in turns within one call; it prints the kernel JSON and the
 card, and no ``ok`` line.
 """
 import argparse
+import contextlib
+import io
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
+
+import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden", "torch_port_{}.npz")
@@ -207,13 +241,11 @@ class DeviceTimer:
 
 
 def rel_err(got, want):
-    import numpy as np
     return float(np.abs(got - want).max() / np.abs(want).max())
 
 
 def random_ct(E, rng):
     """Random energy-symmetric tangent (E, 6, 6): A is then symmetric."""
-    import numpy as np
     M = rng.normal(size=(E, 6, 6))
     CT = 0.5 * (M + np.transpose(M, (0, 2, 1))) + 8.0 * np.eye(6)
     w = np.diag([1.0, 1, 1, 2, 2, 2])
@@ -277,7 +309,6 @@ def csr_from_element_rows(rows, conn, n_nodes):
 def csr_from_planes(vals, dia):
     """The assembled operator of block-DIA planes: the 9 entries of every
     node pair that exists (the true nonzeros; other slots are padding)."""
-    import numpy as np
     import torch
     N, dev = dia.n_nodes, vals.device
     slot = torch.as_tensor(np.unique(dia.plan.row_slot).astype(np.int64),
@@ -344,7 +375,6 @@ def measure(timer, what, shape, kernel, plain, A, u, v, tol, nbytes, flops):
 
 def kernel_phase(st, cfg, dev):
     """Phase 3: every kernel at every shape; returns the kernel rows."""
-    import numpy as np
     import torch
     from safeincave_torch.fem.bandkernel import BandMatvec, band_matvec_plain
     from safeincave_torch.fem.blockell import element_block_rows
@@ -460,7 +490,6 @@ def run_chunks(eq, t_first, sizes):
 def parity(tag, golden, u_elastic, rows3, u3, sig3):
     """Fields against a JAX golden: elastic u at 1e-8, u and sig_v after 3
     steps at 1e-6 max|ref|, equal converged flags."""
-    import numpy as np
     e_el = rel_err(u_elastic, golden["u_elastic"])
     e_u = rel_err(u3, golden["u"])
     e_s = rel_err(sig3, golden["sig_v"])
@@ -475,16 +504,282 @@ def parity(tag, golden, u_elastic, rows3, u3, sig3):
              f"{golden['rows'][:, 0].tolist()}")
 
 
+class MemorySink:
+    """``SaveFields``' protocol in memory, for a machine without h5py:
+    ``saved`` holds (t, {field: host array}) at exactly the calls that
+    SaveFields would write."""
+
+    def __init__(self, eq, save_every: int = 1):
+        self.eq = eq
+        self.save_every = save_every
+        self.fields = []
+        self.saved = []
+        self._calls = 0
+
+    def set_output_folder(self, folder):
+        pass
+
+    def add_output_field(self, name, label):
+        self.fields.append((name, label))
+
+    def initialize(self):
+        pass
+
+    def calls_until_next_keep(self):
+        j = (1 - self._calls) % self.save_every
+        return j if j else self.save_every
+
+    def skip_calls(self, k):
+        if k >= self.calls_until_next_keep():
+            raise AssertionError("fused chunk crossed a save boundary")
+        self._calls += k
+
+    def save_fields(self, t):
+        keep = self._calls % self.save_every == 0
+        self._calls += 1
+        if keep:
+            self.saved.append((float(t), {
+                f: getattr(self.eq, f).detach().cpu().numpy()
+                for f, _ in self.fields}))
+
+    def save_mesh(self):
+        pass
+
+
+def have_h5py():
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def saved_times(out, st):
+    """Times of the saves an output made: SaveFields read back through
+    the port's postproc, or a MemorySink's record."""
+    if isinstance(out, MemorySink):
+        return [t for t, _ in out.saved]
+    t, _, _, _ = st.PostProcessingTools.read_timeseries(
+        out.output_folder, out.fields[0][0])
+    return list(t)
+
+
+def within(tag, got, ref, tol):
+    err = rel_err(got, ref)
+    if not err <= tol:
+        raise AssertionError(f"{tag}: {err:.3e} > {tol} max|ref|")
+    return err
+
+
+def sim_phase(st, cfg, dev, tmp):
+    """Phase 8; returns (band launches, launches per step) over both
+    stages."""
+    import torch
+    golden = np.load(GOLDEN.format("sim_cavern600"))
+    sink = "SaveFields (h5py)" if have_h5py() else "MemorySink (no h5py)"
+    eq = cfg.cavern_example(st, dev, precond="auto")
+    band = eq.kernel.band
+    if band is None:
+        raise AssertionError("sim: band kernel not auto-selected on CUDA")
+    ck = os.path.join(tmp, "sim_checkpoint.npz")
+    stages = (("eq", "equilibrium", ("u", "p_elems"), 1, 12, {}),
+              ("op", "operation", ("u", "p_elems", "q_elems"), 6, 48,
+               dict(checkpoint_every=12, checkpoint_path=ck)))
+    total_launches, total_steps, notes = 0, 0, []
+    for prefix, stage, fields, every, n_steps, extra in stages:
+        out = (st.SaveFields if have_h5py() else MemorySink)(
+            eq, save_every=every)
+        out.set_output_folder(os.path.join(tmp, "sim", stage))
+        for f in fields:
+            out.add_output_field(f, f)
+        metrics = st.StepMetrics(os.path.join(tmp, f"sim_{stage}.jsonl"))
+        screen = io.StringIO()
+        torch.cuda.synchronize()
+        band.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(screen):
+            tc = cfg.run_cavern_stage(st, eq, stage, [out], metrics=metrics,
+                                      **extra)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = band.launches
+        n_rows = sum(1 for ln in screen.getvalue().splitlines()
+                     if ln.split("|")[0].strip().isdigit())
+        if n_rows != n_steps:
+            raise AssertionError(f"sim {stage}: {n_rows} screen rows")
+        rec = cfg.stage_record(eq, metrics)
+        rows, ref_rows = rec["rows"], golden[f"{prefix}_rows"]
+        if not (len(rows) == n_steps and (rows[:, 2] == 1).all()):
+            raise AssertionError(f"sim {stage}: steps {rows.tolist()}")
+        if launches <= 0:
+            raise AssertionError(f"sim {stage}: band kernel never launched")
+        if not np.array_equal(rows[:, 2], ref_rows[:, 2]):
+            raise AssertionError(f"sim {stage}: converged flags differ")
+        d_it = int(np.abs(rows[:, 0] - ref_rows[:, 0]).max())
+        if d_it > 1:
+            raise AssertionError(f"sim {stage}: fixed-point counts "
+                                 f"{rows[:, 0].tolist()} vs golden "
+                                 f"{ref_rows[:, 0].tolist()}")
+        errs = {f: within(f"sim {stage} {f}", rec[f], golden[f"{prefix}_{f}"],
+                          1e-6) for f in fields}
+        want = [k * tc.dt for k in range(0, n_steps + 1, every)]
+        if not np.allclose(saved_times(out, st), want, rtol=0, atol=1e-6):
+            raise AssertionError(f"sim {stage}: saves at "
+                                 f"{saved_times(out, st)}, want {want}")
+        walls = [r["wall_s"] for r in metrics.records]
+        if prefix == "eq":
+            steps_ms = 1e3 * float(np.mean(walls[1:]))
+            detail = (f"{steps_ms:.1f} ms/step over steps 2-{n_steps} "
+                      f"(per-step flow, StepMetrics wall)")
+        else:
+            solve_ms = 1e3 * sum(walls) / n_steps
+            steps_ms = 1e3 * secs / n_steps
+            detail = (f"{steps_ms:.1f} ms/step in the stage, of which "
+                      f"{solve_ms:.1f} in solve_time_steps and "
+                      f"{steps_ms - solve_ms:.1f} in the driver (fused "
+                      f"chunks, saves, smoothing, metrics, checkpoints); "
+                      f"{1e3 * float(np.mean(walls[every:])):.1f} ms/step "
+                      f"in solve_time_steps after the first chunk (which "
+                      f"builds the preconditioner)")
+        notes.append(steps_ms)
+        say("sim", f"{stage}: {n_steps} steps converged in {secs:.2f} s "
+                   f"(preconditioner build included; {n_rows} screen rows, "
+                   f"the transcript not echoed); {detail}; {rows[:, 0].mean():.2f} fixed-point it/step, "
+                   f"max |it - golden| {d_it}; band launches {launches}, "
+                   f"{launches / n_steps:.1f} per step; vs golden "
+                   + ", ".join(f"{f} {e:.2e}" for f, e in errs.items())
+                   + f" (<=1e-6 max|ref|); {len(want)} saves at the expected "
+                   f"times; sink {sink}")
+        total_launches += launches
+        total_steps += n_steps
+
+    p_elems = eq.p_elems.clone()
+    for _ in range(2):
+        eq.compute_p_elems()
+        if not torch.equal(eq.p_elems, p_elems):
+            raise AssertionError("sim: smoothing p_elems is not bitwise "
+                                 "repeatable")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st.save_checkpoint(os.path.join(tmp, "timed.npz"), eq, tc)
+    ck_ms = 1e3 * (time.perf_counter() - t0)
+
+    # resume: the last checkpoint in a fresh equation vs the straight run
+    fresh = cfg.cavern_example(st, dev, precond="auto")
+    cfg.cavern_stage_bcs(st, fresh, "operation", tc.t_final)
+    for eq_r in (eq, fresh):
+        tc_r = st.TimeController(dt=1.0, initial_time=0.0,
+                                 final_time=50.0, time_unit="hour")
+        if eq_r is fresh:
+            st.load_checkpoint(ck, fresh, tc_r)
+        else:
+            tc_r.t, tc_r.step_counter = tc.t, tc.step_counter
+        if tc_r.step_counter != 48:
+            raise AssertionError(f"sim: resume from step {tc_r.step_counter}")
+        with contextlib.redirect_stdout(io.StringIO()):
+            st.Simulator_M(eq_r, tc_r, [],
+                           compute_elastic_response=False).run()
+    for name in ("u", "sig_v", "eps_tot_v"):
+        if not torch.equal(getattr(eq, name), getattr(fresh, name)):
+            raise AssertionError(f"sim: resumed {name} differs from the "
+                                 f"straight run")
+    for a, b in zip(eq.mat.elems_ne, fresh.mat.elems_ne):
+        for k, v in a.state.items():
+            if not torch.equal(v, b.state[k]):
+                raise AssertionError(f"sim: resumed state {k} differs")
+    say("sim", f"smoothing repeats bitwise; checkpoint save {ck_ms:.1f} ms; "
+               f"step-48 checkpoint + 2 steps in a fresh equation equals "
+               f"the straight run bit for bit (u, sig_v, eps_tot_v, states)")
+    return total_launches, total_launches / total_steps, notes
+
+
+def json_child(case_path, result_path):
+    """``--json-child``: run sim_cli on the case with the recording
+    simulator (and MemorySink without h5py); write the stage records to
+    ``result_path`` and print the DIA launch count on the last line."""
+    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import safeincave_torch as st
+    import safeincave_torch.config as config
+    import torch_port_configs as cfg
+    from safeincave_torch.app import sim_cli
+    records = []
+    config.Simulator_M = cfg.recording_simulator(st, records)
+    if not have_h5py():
+        config.SaveFields = MemorySink
+    print(f"sink: {'SaveFields (h5py)' if have_h5py() else 'MemorySink'}",
+          flush=True)
+    sim = sim_cli.main(["--json", case_path])
+    dia = sim.mom_eq.kernel.dia
+    if dia is None or not dia.structured:
+        raise AssertionError("json: block-DIA with the structured assembly "
+                             "not auto-selected on the written box")
+    data = {}
+    for prefix, rec in zip(("eq", "op"), records):
+        data.update({f"{prefix}_{k}": v for k, v in rec.items()})
+    np.savez(result_path, **data)
+    print(json.dumps({"dia_launches": dia.launches}), flush=True)
+
+
+def json_phase(st, cfg, tmp):
+    """Phase 9; returns (DIA launches, launches per step)."""
+    golden = np.load(GOLDEN.format("json_box17"))
+    grid_dir = os.path.join(tmp, "box17")
+    os.makedirs(grid_dir, exist_ok=True)
+    st.mesh.write_msh(os.path.join(grid_dir, "geom.msh"),
+                      *st.mesh.box_mesh(600.0, 600.0, 800.0, 17, 17, 17))
+    case = os.path.join(tmp, "box17.json")
+    st.Utils.save_json(cfg.box_case(grid_dir, os.path.join(tmp, "json_out")),
+                       case)
+    result = os.path.join(tmp, "json_result.npz")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--json-child", case, result],
+                          capture_output=True, text=True, timeout=900)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"json: sim_cli failed:\n{proc.stdout[-3000:]}"
+                             f"\n{proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    launches = json.loads(lines[-1])["dia_launches"]
+    sink = next(ln for ln in lines if ln.startswith("sink: "))[6:]
+    if launches <= 0:
+        raise AssertionError("json: the DIA kernel never launched")
+    got = np.load(result)
+    rows = np.concatenate([got["eq_rows"], got["op_rows"]])
+    if not (rows[:, 2] == 1).all():
+        raise AssertionError(f"json: non-converged steps {rows.tolist()}")
+    errs = {f: within(f"json operation {f}", got[f"op_{f}"],
+                      golden[f"op_{f}"], 1e-6) for f in ("u", "p_elems")}
+    ref_it = np.concatenate([golden["eq_rows"], golden["op_rows"]])[:, 0]
+    say("json", f"sim_cli --json on box17 (write_msh -> read_msh, E=29478, "
+                f"N=5832) in a child process: exit 0 in {secs:.1f} s "
+                f"(process start, build load and both stages); "
+                f"{len(rows)} steps converged, fixed-point it "
+                f"{rows[:, 0].astype(int).tolist()} vs golden "
+                f"{ref_it.astype(int).tolist()}; "
+                f"DIA launches {launches}, {launches / len(rows):.1f} per "
+                f"step; operation u {errs['u']:.2e}, p_elems "
+                f"{errs['p_elems']:.2e} vs golden (<=1e-6 max|ref|); sink "
+                f"{sink}")
+    return launches, launches / len(rows)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tree", help="run phase 3 alone on the "
                     "safeincave_torch package of this checkout")
+    ap.add_argument("--json-child", nargs=2, metavar=("CASE", "RESULT"),
+                    help="phase 9's child: run sim_cli on CASE, write the "
+                    "stage records to RESULT")
     args = ap.parse_args()
-    import numpy as np
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's smoke run "
                          "needs a GPU")
+    if args.json_child:
+        json_child(*args.json_child)
+        return
     tree = os.path.abspath(args.tree) if args.tree else ROOT
     sys.path.insert(0, tree)
     sys.path.insert(0, os.path.join(tree, "tests"))
@@ -616,11 +911,30 @@ def main():
 
     # 7. box parity -------------------------------------------------------- #
     parity("box parity", golden, u_elastic, rows3, u3, sig3)
+    del eq, P, dia
 
-    counts = {BAND["name"]: (launches, band_per_step),
-              DIA["name"]: (launches_box, dia_per_step)}
+    with tempfile.TemporaryDirectory() as tmp:
+        # 8. the 4_cavern workflow through Simulator_M --------------------- #
+        sim_launches, sim_per_step, stage_ms = sim_phase(st, cfg, dev, tmp)
+        say("sim", f"ms/step: equilibrium {stage_ms[0]:.1f}, operation "
+                   f"{stage_ms[1]:.1f}; phase 4's bare solve_time_steps "
+                   f"{1e3 * secs2 / len(rows2):.1f} (the bench material, "
+                   f"with Desai)")
+        # 9. the JSON driver in a child process ----------------------------- #
+        json_launches, json_per_step = json_phase(st, cfg, tmp)
+
+    # launches of each path, each counted from 0 just before the path ran
+    paths = {BAND["name"]: {"main": (launches, band_per_step),
+                            "sim": (sim_launches, sim_per_step)},
+             DIA["name"]: {"box": (launches_box, dia_per_step),
+                           "json": (json_launches, json_per_step)}}
     for row in kernel_rows:
-        row["launches"], row["launches_per_step"] = counts[row["name"]]
+        by_path = paths[row["name"]]
+        row["launches"], row["launches_per_step"] = next(
+            iter(by_path.values()))
+        row["launches_by_path"] = {k: n for k, (n, _) in by_path.items()}
+        row["launches_per_step_by_path"] = {k: r for k, (_, r)
+                                            in by_path.items()}
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -386,6 +386,10 @@ class LinearMomentumBase:
         self.u = z(self.n_nodes, 3)
         self.sig_v = z(self.n_elems, 6)
         self.eps_tot_v = z(self.n_elems, 6)
+        self.q_nodes = z(self.n_nodes)
+        self.q_elems = z(self.n_elems)
+        self.p_nodes = z(self.n_nodes)
+        self.p_elems = z(self.n_elems)
         self.b_body = z(self.n_nodes, 3)
         self.solver = SolverSettings()
         self.solver_stats = (0, 0.0)
@@ -415,10 +419,44 @@ class LinearMomentumBase:
         self.g_vec = list(g)
         self.b_body = self.kernel.body_force(self.mat.density, g)
 
+    # -- invariants and their smoothing (output fields) -------------------- #
+    def _q_dg0(self):
+        """Von Mises stress sqrt(3 J2) per element."""
+        s = self.sig_v
+        I1 = s[:, 0] + s[:, 1] + s[:, 2]
+        I2 = (s[:, 0] * s[:, 1] + s[:, 1] * s[:, 2] + s[:, 0] * s[:, 2]
+              - s[:, 3] ** 2 - s[:, 4] ** 2 - s[:, 5] ** 2)
+        J2 = I1 ** 2 / 3.0 - I2
+        return torch.sqrt(torch.clamp(3.0 * J2, min=0.0))
+
+    def _p_dg0(self):
+        """Mean stress per element."""
+        return (self.sig_v[:, 0] + self.sig_v[:, 1] + self.sig_v[:, 2]) / 3.0
+
+    def compute_q_nodes(self):
+        self.q_nodes = self.grid.elems_to_nodes(self._q_dg0())
+
+    def compute_q_elems(self):
+        self.q_elems = self.grid.smooth_elems(self._q_dg0())
+
+    def compute_p_nodes(self):
+        self.p_nodes = self.grid.elems_to_nodes(self._p_dg0())
+
+    def compute_p_elems(self):
+        self.p_elems = self.grid.smooth_elems(self._p_dg0())
+
     # -- strain / internal-variable orchestration -------------------------- #
     def compute_total_strain(self):
         self.eps_tot_v = self.kernel.strain(self.u)
         return self.eps_tot_v
+
+    def compute_eps_ne_k(self, dt):
+        """Sum of the mechanisms' theta-scheme predictors (E, 6)."""
+        eps_k = torch.zeros((self.n_elems, 6), dtype=F64, device=self.device)
+        for e in self.mat.elems_ne:
+            e.compute_eps_ne_k(dt * self.theta, dt * (1 - self.theta))
+            eps_k = eps_k + e.state["eps_k"]
+        return eps_k
 
     def compute_eps_ne_rate(self, stress, dt):
         sv = self._f64(_as_voigt(stress))
@@ -436,9 +474,27 @@ class LinearMomentumBase:
             e.state = e.f_update_eps_old(e.state, sv, sv_k,
                                          dt * (1 - self.theta))
 
+    def increment_internal_variables(self, stress, stress_k, dt):
+        sv = self._f64(_as_voigt(stress))
+        sv_k = self._f64(_as_voigt(stress_k))
+        for e in self.mat.elems_ne:
+            e.state = e.f_increment_isv(e.state, sv, sv_k, dt)
+
     def update_internal_variables(self):
         for e in self.mat.elems_ne:
             e.state = e.f_commit_isv(e.state)
+
+    # -- dt-retry snapshots ------------------------------------------------ #
+    def save_internal_state(self):
+        """Snapshot every mechanism's state dict.  The snapshot shares the
+        tensors: every ``f_*`` update returns new tensors and none writes
+        into a state tensor in place, so a later step leaves them as they
+        were."""
+        self._saved_state = [dict(e.state) for e in self.mat.elems_ne]
+
+    def restore_internal_state(self):
+        for e, st in zip(self.mat.elems_ne, self._saved_state):
+            e.state = dict(st)
 
     def run_after_solve(self):
         """User extension hook."""

@@ -10,13 +10,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .utils import to_numpy as _np
+
 FIELDS = ("u", "sig_v", "eps_tot_v", "_u_last_step")
-
-
-def _np(x) -> np.ndarray:
-    if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
-    return np.asarray(x)
 
 
 def numpy_state(eq) -> dict:

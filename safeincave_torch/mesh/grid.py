@@ -3,13 +3,15 @@
 Port of ``safeincave_tpu/mesh/grid.py``.  Geometry stays on the host: the
 equation objects move what they need to their device.  ``_tet_geometry`` and
 ``_facet_geometry`` keep the JAX package's exact term order, so on the CPU
-both packages produce bitwise-identical geometry.
+both packages produce bitwise-identical geometry.  The node<->element
+smoother runs on the device of the field it is given.
 """
 from __future__ import annotations
 
 import os
 
 import numpy as np
+import torch
 
 from .msh_io import read_msh, MshData
 
@@ -117,6 +119,60 @@ class Grid:
             self.tri_areas = np.zeros(0)
             self.tri_normals = np.zeros((0, 3))
             self.tri_owners = np.zeros(0, dtype=np.int64)
+        self._build_smoother()
+
+    # -- node <-> element smoothing ---------------------------------------- #
+    def _build_smoother(self):
+        """Volume-weighted element->node averaging as flat (node, element,
+        weight) arrays over the 4E element corners, in the JAX package's
+        order, and their node-major padded layout: row n of
+        ``(elem_of, w_of)`` (N, K) lists node n's corners, K the largest
+        valence, padded with element 0 at weight 0."""
+        flat_nodes = self.conn.reshape(-1).astype(np.int64)      # (4E,)
+        flat_elems = np.repeat(np.arange(self.n_elems), 4)
+        vol_sum_at_node = np.zeros(self.n_nodes)
+        np.add.at(vol_sum_at_node, flat_nodes, self.volumes[flat_elems])
+        self.smooth_node_idx = flat_nodes
+        self.smooth_elem_idx = flat_elems
+        self.smooth_weights = (self.volumes[flat_elems]
+                               / vol_sum_at_node[flat_nodes])
+        order = np.argsort(flat_nodes, kind="stable")
+        counts = np.bincount(flat_nodes, minlength=self.n_nodes)
+        starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        rank = np.arange(order.size) - starts[flat_nodes[order]]
+        K = int(counts.max()) if counts.size else 0
+        self._elem_of = np.zeros((self.n_nodes, K), dtype=np.int64)
+        self._w_of = np.zeros((self.n_nodes, K))
+        self._elem_of[flat_nodes[order], rank] = flat_elems[order]
+        self._w_of[flat_nodes[order], rank] = self.smooth_weights[order]
+        self._smoother_on = {}
+
+    def _smoother(self, device):
+        """(elem_of, w_of, conn) as tensors on ``device``, made once."""
+        key = str(torch.device(device))
+        if key not in self._smoother_on:
+            as_t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+            self._smoother_on[key] = (as_t(self._elem_of), as_t(self._w_of),
+                                      as_t(self.conn.astype(np.int64)))
+        return self._smoother_on[key]
+
+    def elems_to_nodes(self, q_elems: torch.Tensor) -> torch.Tensor:
+        """Volume-weighted element->node average (N,) of a DG0 field (E,).
+
+        Each node sums its padded row of weighted corner values: a gather
+        and a row reduction, deterministic on CUDA (``index_add_`` there is
+        atomic and its sums vary in the last bits from run to run)."""
+        elem_of, w_of, _ = self._smoother(q_elems.device)
+        return (w_of.to(q_elems.dtype) * q_elems[elem_of]).sum(1)
+
+    def nodes_to_elems(self, q_nodes: torch.Tensor) -> torch.Tensor:
+        """Uniform node->element average (E,) of a nodal field (N,)."""
+        _, _, conn = self._smoother(q_nodes.device)
+        return q_nodes[conn].mean(1)
+
+    def smooth_elems(self, q_elems: torch.Tensor) -> torch.Tensor:
+        """Element smoother: nodes_to_elems(elems_to_nodes(q))."""
+        return self.nodes_to_elems(self.elems_to_nodes(q_elems))
 
     # -- tag queries ------------------------------------------------------- #
     def get_boundaries(self):

@@ -1,9 +1,9 @@
 """Pure-Python gmsh ``.msh`` reader (ASCII v2.2 and v4.1), numpy only.
 
-Port of ``safeincave_tpu/mesh/msh_io.py`` (the reader; the writer is not
-ported yet).  Only tetrahedra (volume cells with region tags), triangles
-(boundary facets with boundary tags) and the ``$PhysicalNames`` table are
-extracted.
+Port of ``safeincave_tpu/mesh/msh_io.py``: the reader and the v2.2 writer
+(byte-identical output).  Only tetrahedra (volume cells with region tags),
+triangles (boundary facets with boundary tags) and the ``$PhysicalNames``
+table are extracted.
 """
 from __future__ import annotations
 
@@ -74,6 +74,32 @@ def read_msh(path: str) -> MshData:
 
     return MshData(points=points, tets=tets, tet_tags=tet_tags,
                    tris=tris, tri_tags=tri_tags, field_data=field_data)
+
+
+def write_msh(path: str, points, tets, tet_tags, tris, tri_tags, field_data):
+    """Write a gmsh v2.2 ASCII mesh (inverse of :func:`read_msh`); node and
+    element order are kept, so a natural-order box stays offset-structured."""
+    points = np.asarray(points)
+    tets = np.asarray(tets)
+    tris = np.asarray(tris)
+    with open(path, "w") as f:
+        f.write("$MeshFormat\n2.2 0 8\n$EndMeshFormat\n")
+        f.write(f"$PhysicalNames\n{len(field_data)}\n")
+        for name, (tag, dim) in field_data.items():
+            f.write(f'{dim} {tag} "{name}"\n')
+        f.write("$EndPhysicalNames\n")
+        f.write(f"$Nodes\n{points.shape[0]}\n")
+        for i, (x, y, z) in enumerate(points):
+            f.write(f"{i + 1} {x:.16g} {y:.16g} {z:.16g}\n")
+        f.write("$EndNodes\n")
+        f.write(f"$Elements\n{tris.shape[0] + tets.shape[0]}\n")
+        eid = 1
+        for kind, cells, tags in ((2, tris, tri_tags), (4, tets, tet_tags)):
+            for cell, tag in zip(cells, tags):
+                nodes = " ".join(str(n + 1) for n in cell)
+                f.write(f"{eid} {kind} 2 {tag} {tag} {nodes}\n")
+                eid += 1
+        f.write("$EndElements\n")
 
 
 # ---------------------------------------------------------------------------

@@ -8,8 +8,11 @@ matvec and any factor-of-2 bookkeeping lives inside the operator.
 from __future__ import annotations
 
 import functools
+import json
 import os
+from typing import Callable
 
+import numpy as np
 import torch
 
 GPa = 1e9
@@ -24,6 +27,25 @@ year = 365 * day
 # tensor contraction: df/dS : dS = sum_k w[k] df/dS_voigt[k] dS_voigt[k].
 VOIGT_WEIGHT = (1.0, 1.0, 1.0, 2.0, 2.0, 2.0)
 ISO6 = (1.0, 1.0, 1.0, 0.0, 0.0, 0.0)
+
+
+def to_numpy(x) -> np.ndarray:
+    """A tensor (on any device) or array-like as a host numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def read_json(file_name: str) -> dict:
+    """Read a JSON file into a dict."""
+    with open(file_name, "r") as j_file:
+        return json.load(j_file)
+
+
+def save_json(data: dict, file_name: str) -> None:
+    """Save a dict as indented JSON."""
+    with open(file_name, "w") as f:
+        json.dump(data, f, indent=4)
 
 
 @functools.lru_cache(maxsize=None)
@@ -92,6 +114,31 @@ def von_mises_voigt(s: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(0.5 * ((xx - yy) ** 2 + (xx - zz) ** 2
                              + (yy - zz) ** 2
                              + 6.0 * (xy ** 2 + xz ** 2 + yz ** 2)))
+
+
+Fn = Callable[[float, float, float], float]
+
+
+def _sample(xyz: np.ndarray, fun: Fn) -> np.ndarray:
+    """``fun(x, y, z)`` at each row of ``xyz``, vectorized when ``fun``
+    takes arrays, point by point otherwise; (n,) float64 on the host."""
+    try:
+        vals = fun(xyz[:, 0], xyz[:, 1], xyz[:, 2])
+        return np.array(np.broadcast_to(np.asarray(vals, dtype=np.float64),
+                                        (xyz.shape[0],)))
+    except (TypeError, ValueError):    # a scalar-only fun given arrays
+        return np.array([fun(x, y, z) for x, y, z in xyz], dtype=np.float64)
+
+
+def create_field_nodes(grid, fun: Fn) -> np.ndarray:
+    """Sample ``fun(x, y, z)`` at every mesh node (host float64, like
+    ``Grid.get_parameter``; the equation's setters move it to its device)."""
+    return _sample(np.asarray(grid.points), fun)
+
+
+def create_field_elems(grid, fun: Fn) -> np.ndarray:
+    """Sample ``fun`` at the tetrahedron centroids (host float64)."""
+    return _sample(np.asarray(grid.centroids), fun)
 
 
 def find_grid(name: str, fallback: str | None = None) -> str:

@@ -79,6 +79,30 @@ def test_get_parameter_matches_jax():
                                       np.asarray(g_jax.get_parameter(param)))
 
 
+@pytest.mark.parametrize("fun", [
+    lambda x, y, z: 2.0 * x - y * z + 1.0,                 # takes arrays
+    lambda x, y, z: float(np.hypot(x, y)) if z > 0.5 else 3.0,  # scalars only
+    lambda x, y, z: 7.0,                                   # a constant
+], ids=["vectorized", "pointwise", "constant"])
+def test_field_samplers_match_jax(fun):
+    g_port, g_jax = _cube(st), _cube(sc)
+    for name in ("create_field_nodes", "create_field_elems"):
+        got = getattr(st.Utils, name)(g_port, fun)
+        want = np.asarray(getattr(sc.Utils, name)(g_jax, fun))
+        assert got.dtype == np.float64 and got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
+
+
+def test_json_round_trip_matches_jax(tmp_path):
+    data = {"grid": {"path": "grids/x", "name": "geom"},
+            "values": [0.0, 1e6, 2.5e-3], "active": True}
+    st.Utils.save_json(data, str(tmp_path / "port.json"))
+    sc.Utils.save_json(data, str(tmp_path / "jax.json"))
+    assert ((tmp_path / "port.json").read_bytes()
+            == (tmp_path / "jax.json").read_bytes())
+    assert st.Utils.read_json(str(tmp_path / "jax.json")) == data
+
+
 def test_find_grid_matches_jax():
     """The repo fixture that the cavern benchmark falls back to; a name
     that is neither a fixture nor (in the port) synthesizable raises."""
@@ -98,12 +122,75 @@ def test_unported_reorderings_raise():
 
 
 def test_import_without_jax():
-    """The port and all its modules import with jax made unimportable."""
+    """The port and all its modules import with jax made unimportable, and
+    without importing h5py (only opening HDF5 files needs it)."""
     code = ("import sys; sys.modules['jax'] = None; "
             "import safeincave_torch, safeincave_torch.interop, "
-            "safeincave_torch.fem.bandkernel, safeincave_torch._build; "
+            "safeincave_torch.fem.bandkernel, safeincave_torch._build, "
+            "safeincave_torch.app.sim_cli, safeincave_torch.postproc; "
+            "assert 'h5py' not in sys.modules; "
             "assert 'safeincave_tpu' not in sys.modules; print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+# --------------------------------------------------------------------------- #
+# node <-> element smoother and the gmsh writer
+# --------------------------------------------------------------------------- #
+def _box_natural(pkg):
+    return pkg.GridBox(Lx=600.0, Ly=600.0, Lz=800.0, nx=5, ny=4, nz=6)
+
+
+@pytest.mark.parametrize("make", [_cavern600_band, _box_natural, _cube],
+                         ids=["cavern600_band", "box", "cube_coarse"])
+def test_smoother_matches_jax(make):
+    """elems_to_nodes, nodes_to_elems and smooth_elems on a seeded field,
+    1e-13 of max|ref|; the host weights are bitwise the JAX package's."""
+    g_port, g_jax = make(st), make(sc)
+    for name in ("smooth_node_idx", "smooth_elem_idx", "smooth_weights"):
+        np.testing.assert_array_equal(getattr(g_port, name),
+                                      np.asarray(getattr(g_jax, name)))
+    rng = np.random.default_rng(1)
+    q_e = 1e7 * rng.normal(size=g_jax.n_elems)
+    q_n = 1e7 * rng.normal(size=g_jax.n_nodes)
+    for fn, q in (("elems_to_nodes", q_e), ("nodes_to_elems", q_n),
+                  ("smooth_elems", q_e)):
+        got = getattr(g_port, fn)(torch.as_tensor(q)).numpy()
+        want = np.asarray(getattr(g_jax, fn)(q))
+        assert got.shape == want.shape
+        assert np.abs(got - want).max() <= 1e-13 * np.abs(want).max(), fn
+
+
+def test_smoother_preserves_constants():
+    """Volume weights sum to one at every node: a constant field smooths to
+    itself."""
+    g = _cavern600_band(st)
+    one = torch.ones(g.n_elems, dtype=torch.float64)
+    torch.testing.assert_close(g.smooth_elems(3.5 * one), 3.5 * one,
+                               rtol=1e-14, atol=0)
+
+
+@pytest.mark.parametrize("make", [
+    lambda pkg: pkg.mesh.box_mesh(nx=2, ny=2, nz=3),
+    lambda pkg: pkg.mesh.box_mesh(600.0, 600.0, 800.0, 4, 3, 5),
+    lambda pkg: pkg.mesh.read_msh(os.path.join(HERE, "files", "cube_coarse",
+                                               "geom.msh")),
+], ids=["box_2x2x3", "box_600", "cube_coarse"])
+def test_write_msh_byte_identical(tmp_path, make):
+    """The port's writer gives the JAX writer's bytes for the same arrays,
+    and the file reads back through the port's reader unchanged."""
+    args = make(st)
+    if not isinstance(args, tuple):
+        args = (args.points, args.tets, args.tet_tags, args.tris,
+                args.tri_tags, args.field_data)
+    st.mesh.write_msh(str(tmp_path / "port.msh"), *args)
+    sc.mesh.write_msh(str(tmp_path / "jax.msh"), *args)
+    assert (tmp_path / "port.msh").read_bytes() == \
+        (tmp_path / "jax.msh").read_bytes()
+    back = st.mesh.read_msh(str(tmp_path / "port.msh"))
+    for got, want in zip((back.points, back.tets, back.tet_tags, back.tris,
+                          back.tri_tags), args[:5]):
+        np.testing.assert_array_equal(got, want)
+    assert back.field_data == args[5]
