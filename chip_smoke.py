@@ -80,6 +80,31 @@ Phases, one line each; any failure raises and the exit code is non-zero:
              is missing and prints its DIA launch count on its last line.
              Exit 0, DIA launched, operation-stage u and p_elems within
              1e-6 max|ref| of tests/golden/torch_port_json_box17.npz.
+10. tm     - bench.py's thermo-mechanical configuration
+             (``torch_port_configs.wire_tm``: Spring, Kelvin-Voigt,
+             dislocation and pressure-solution creep, ``Thermoelastic``; a
+             Dirichlet ramp on TOP and a Robin wall on "Cavern" for the heat
+             equation, mixed-precision CG at rtol 1e-12) through
+             ``Simulator_TM`` on the band-ordered cavern600 mesh: 24 steps
+             at 1 h in fused chunks, u and T saved every 6 steps, a
+             checkpoint with the heat keys at step 12.  Every step
+             converged, the band kernel launched, final u, sig_v and T
+             within 1e-6 max|ref| of
+             tests/golden/torch_port_tm_cavern600.npz, fixed-point counts
+             within +-1, the heat step repeats bitwise, and the checkpoint
+             loaded into fresh equations runs steps 13-24 to the straight
+             run's u, sig_v, T and states bit for bit.  Six steps of
+             ``Simulator_T`` on the same heat equation, T within 1e-8 of
+             tests/golden/torch_port_t_cavern600.npz.  Prints ms/step, the
+             heat step's share, heat CG and Krylov iterations and band
+             launches per step.
+11. tm_box - bare ``solve_tm_time_steps`` on GridBox(600, 600, 800, nx=17)
+             in natural order with the same material, Dirichlet TOP and
+             Robin BOTTOM, precond and fp32_phase "auto" (block-DIA, dense
+             preconditioner, the f32 sweep carrying the thermal strain): 8
+             steps (a chunk of 3, then 5) converged, the DIA kernel launched, u, sig_v and T within
+             1e-6 max|ref| of tests/golden/torch_port_tm_box17.npz.  Prints
+             the same per-step numbers and the sweeps the gate accepted.
 
 The last lines are the kernel JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  There is no CPU fallback: without a CUDA
@@ -91,6 +116,10 @@ runs phase 3 alone on the ``safeincave_torch`` package of another checkout
 (DIR holds its ``safeincave_torch/`` and ``tests/``), to time two designs of
 the kernels in turns within one call; it prints the kernel JSON and the
 card, and no ``ok`` line.
+
+    python3 chip_smoke.py --phase tm|tm_box
+
+builds the kernels and runs phase 10 or 11 alone (no ``ok`` line).
 """
 import argparse
 import contextlib
@@ -693,6 +722,288 @@ def sim_phase(st, cfg, dev, tmp):
     return total_launches, total_launches / total_steps, notes
 
 
+class CheckpointSink(MemorySink):
+    """An output that saves nothing but writes one checkpoint, heat field
+    included, at its ``save_every``-th step; as an output it also makes the
+    fused chunks end on that step."""
+
+    def __init__(self, st, path, eq, heat, tc, save_every):
+        super().__init__(eq, save_every)
+        self.st, self.path, self.heat, self.tc = st, path, heat, tc
+
+    def save_fields(self, t):
+        if self._calls == self.save_every:
+            self.st.save_checkpoint(self.path, self.eq, self.tc,
+                                    heat_eq=self.heat)
+        self._calls += 1
+
+
+@contextlib.contextmanager
+def recorded_tm_chunks(st, chunks, kernel):
+    """While active, every ``solve_tm_time_steps`` call appends (rows,
+    seconds, launches of ``kernel``) to ``chunks``.  The method is wrapped
+    on the class: ``Simulator_TM`` takes single steps with an equation
+    whose instance overrides it."""
+    import torch
+    real = st.LinearMomentum.solve_tm_time_steps
+
+    def recording(self, *args, **kw):
+        torch.cuda.synchronize()
+        n0, t0 = kernel.launches, time.perf_counter()
+        rows = real(self, *args, **kw)
+        torch.cuda.synchronize()
+        chunks.append((rows, time.perf_counter() - t0, kernel.launches - n0))
+        return rows
+    st.LinearMomentum.solve_tm_time_steps = recording
+    try:
+        yield
+    finally:
+        st.LinearMomentum.solve_tm_time_steps = real
+
+
+def time_heat_steps(heat, seconds):
+    """Wrap ``heat.step`` so that each call's host time, between two device
+    synchronisations, is appended to ``seconds``."""
+    import torch
+    real = heat.step
+
+    def step(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*args)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        return out
+    heat.step = step
+
+
+def tm_summary(chunks, heat_secs):
+    """ms/step, the heat step's share and the iteration counts of coupled
+    chunks [(rows, seconds)], rows [heat_iters, heat_res, fp_iters, error,
+    krylov_total, converged]; ``heat_secs`` holds one time per step.  The
+    first chunk is reported apart from the rest: in a process that has not
+    run a step yet (``--phase``) it pays the first use of every operation,
+    seconds in all."""
+    rows = np.concatenate([r for r, _ in chunks])
+    n0 = len(chunks[0][0])
+    rest = sum(s for _, s in chunks[1:])
+    n = len(rows) - n0
+    return (f"{1e3 * chunks[0][1] / n0:.1f} ms/step in the first chunk of "
+            f"{n0}, {1e3 * rest / n:.1f} ms/step in solve_tm_time_steps "
+            f"after it, of which the heat step "
+            f"{1e3 * sum(heat_secs[n0:]) / n:.1f} "
+            f"({100 * sum(heat_secs[n0:]) / rest:.0f}%); per step "
+            f"{rows[:, 0].mean():.1f} heat CG it, {rows[:, 2].mean():.2f} "
+            f"fixed-point it, {rows[:, 4].mean():.1f} Krylov it")
+
+
+def assert_same_state(tag, eq, heat, eq_ref, heat_ref):
+    import torch
+    for obj, ref, names in ((eq, eq_ref, ("u", "sig_v", "eps_tot_v", "Temp",
+                                          "T0")),
+                            (heat, heat_ref, ("T", "T_old"))):
+        for name in names:
+            if not torch.equal(getattr(obj, name), getattr(ref, name)):
+                raise AssertionError(f"{tag}: resumed {name} differs from "
+                                     f"the straight run")
+    for a, b in zip(eq.mat.elems_ne, eq_ref.mat.elems_ne):
+        for k, v in a.state.items():
+            if not torch.equal(v, b.state[k]):
+                raise AssertionError(f"{tag}: resumed state {a.name}.{k} "
+                                     f"differs")
+
+
+def tm_phase(st, cfg, tmp):
+    """Phase 10; returns (band launches, launches per step)."""
+    import torch
+    golden = np.load(GOLDEN.format("tm_cavern600"))
+    n_steps, every = 24, 6
+    Sink = st.SaveFields if have_h5py() else MemorySink
+    eq, heat = cfg.wire_tm(st, cfg.cavern600_grid(st), "Cavern",
+                           precond="auto")
+    band = eq.kernel.band
+    if band is None:
+        raise AssertionError("tm: band kernel not auto-selected on CUDA")
+    tc = st.TimeController(dt=1.0, initial_time=0.0,
+                           final_time=float(n_steps), time_unit="hour")
+    outs = []
+    for obj, field in ((eq, "u"), (heat, "T")):
+        out = Sink(obj, save_every=every)
+        out.set_output_folder(os.path.join(tmp, "tm", field))
+        out.add_output_field(field, field)
+        outs.append(out)
+    ck = os.path.join(tmp, "tm_checkpoint.npz")
+    outs.append(CheckpointSink(st, ck, eq, heat, tc, 12))
+    chunks, heat_secs = [], []
+    time_heat_steps(heat, heat_secs)
+    torch.cuda.synchronize()
+    band.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()), \
+            recorded_tm_chunks(st, chunks, band):
+        sim = st.Simulator_TM(eq, heat, tc, outs)
+        sim.run()
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t0
+    launches = band.launches
+    P, _ = eq._get_precond()
+    if not (len(P) == 1 and P[0].shape[0] == 3 * eq.grid.n_nodes):
+        raise AssertionError("tm: precond 'auto' did not resolve to dense")
+    rows = np.concatenate([r for r, _, _ in chunks])
+    screen = cfg.screen_rows(sim.screen.lines)
+    if not (len(rows) == len(screen) == n_steps and (rows[:, 5] == 1).all()):
+        raise AssertionError(f"tm: {len(screen)} screen rows, steps "
+                             f"{rows[:, [2, 3, 5]].tolist()}")
+    if [len(r) for r, _, _ in chunks] != [every] * (n_steps // every):
+        raise AssertionError(f"tm: chunks of "
+                             f"{[len(r) for r, _, _ in chunks]} steps")
+    if launches <= 0:
+        raise AssertionError("tm: the band kernel never launched")
+    d_it = int(np.abs(rows[:, 2] - golden["rows"][:, 0]).max())
+    if d_it > 1:
+        raise AssertionError(f"tm: fixed-point counts {rows[:, 2].tolist()} "
+                             f"vs golden {golden['rows'][:, 0].tolist()}")
+    errs = {k: within(f"tm {k}", v.cpu().numpy(), golden[k], 1e-6)
+            for k, v in (("u", eq.u), ("sig_v", eq.sig_v), ("T", heat.T))}
+    want = [k * HOUR for k in range(0, n_steps + 1, every)]
+    for out in outs[:2]:
+        if not np.allclose(saved_times(out, st), want, rtol=0, atol=1e-6):
+            raise AssertionError(f"tm: {out.fields[0][0]} saved at "
+                                 f"{saved_times(out, st)}, want {want}")
+    step_launches = sum(n for _, _, n in chunks)
+    say("tm", f"Simulator_TM on cavern600 (E={eq.n_elems}, "
+              f"N={eq.grid.n_nodes}): {n_steps} steps converged in "
+              f"{stage_s:.2f} s (elastic response and dense preconditioner "
+              f"included); "
+              + tm_summary([c[:2] for c in chunks], heat_secs)
+              + f"; max |fixed-point it - golden| {d_it}; band launches "
+              f"{launches}, {step_launches / n_steps:.1f} per step inside the "
+              f"chunks; vs golden "
+              + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
+              + f" (<=1e-6 max|ref|); u and T saved at {len(want)} expected "
+              f"times; sink {Sink.__name__}")
+
+    # the heat step is deterministic: same inputs, same bits
+    a = heat.step(heat.T, heat.T_old, 25 * HOUR, HOUR)
+    b = heat.step(heat.T, heat.T_old, 25 * HOUR, HOUR)
+    if not (torch.equal(a[0], b[0]) and a[1] == b[1]):
+        raise AssertionError("tm: the heat step does not repeat bitwise")
+
+    # resume: the step-12 checkpoint in fresh equations vs the straight run
+    eq_r, heat_r = cfg.wire_tm(st, cfg.cavern600_grid(st), "Cavern",
+                               precond="auto")
+    tc_r = st.TimeController(dt=1.0, initial_time=0.0,
+                             final_time=float(n_steps), time_unit="hour")
+    with np.load(ck) as z:
+        if not {"heat_T", "heat_T_old", "T0", "Temp"} <= set(z.files):
+            raise AssertionError(f"tm: checkpoint keys {sorted(z.files)}")
+    st.load_checkpoint(ck, eq_r, tc_r, heat_eq=heat_r)
+    if tc_r.step_counter != 12 or tc_r.t != 12 * HOUR:
+        raise AssertionError(f"tm: resume from step {tc_r.step_counter}")
+    for first in (13, 19):
+        r = eq_r.solve_tm_time_steps(
+            heat_r, [(first + k) * HOUR for k in range(every)],
+            [HOUR] * every, tol=sim.tol, maxiter=sim.maxiter)
+        if not (r[:, 5] == 1).all():
+            raise AssertionError(f"tm: resumed steps {r.tolist()}")
+    assert_same_state("tm", eq_r, heat_r, eq, heat)
+
+    # the heat equation alone through Simulator_T
+    _, heat_t = cfg.wire_tm(st, cfg.cavern600_grid(st), "Cavern",
+                            precond="auto")
+    tc_t = st.TimeController(dt=1.0, initial_time=0.0, final_time=6.0,
+                             time_unit="hour")
+    out = Sink(heat_t, save_every=every)
+    out.set_output_folder(os.path.join(tmp, "t", "T"))
+    out.add_output_field("T", "T")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        st.Simulator_T(heat_t, tc_t, [out]).run()
+    torch.cuda.synchronize()
+    t_s = time.perf_counter() - t0
+    e_T = within("t T", heat_t.T.cpu().numpy(),
+                 np.load(GOLDEN.format("t_cavern600"))["T"], 1e-8)
+    say("tm", f"heat step repeats bitwise; step-12 checkpoint (heat_T, "
+              f"heat_T_old) + steps 13-24 in fresh equations equals the "
+              f"straight run bit for bit (u, sig_v, eps_tot_v, Temp, T0, T, "
+              f"T_old, states); Simulator_T, 6 steps: "
+              f"{1e3 * t_s / 6:.1f} ms/step, {heat_t.solver_stats[0]} CG it "
+              f"in the last, T {e_T:.2e} vs golden (<=1e-8), saves at "
+              f"{saved_times(out, st)}")
+    return launches, step_launches / n_steps
+
+
+def tm_box_phase(st, cfg):
+    """Phase 11; returns (DIA launches, launches per step)."""
+    import torch
+    golden = np.load(GOLDEN.format("tm_box17"))
+    n_steps = len(golden["rows"])
+    box = cfg.box17_grid(st)
+    eq, heat = cfg.wire_tm(st, box, "BOTTOM", precond="auto",
+                           fp32_phase="auto")
+    dia = eq.kernel.dia
+    if dia is None or not dia.structured:
+        raise AssertionError("tm_box: block-DIA with the structured assembly "
+                             "not auto-selected on CUDA")
+    if not eq.solver.fp32_enabled(eq.device):
+        raise AssertionError("tm_box: fp32_phase 'auto' did not enable the "
+                             "f32 sweep")
+    cfg.tm_init(eq, heat)
+    P, _ = eq._get_precond()
+    if not (len(P) == 1 and P[0].shape[0] == 3 * box.n_nodes):
+        raise AssertionError("tm_box: precond 'auto' did not resolve to "
+                             "dense")
+    heat_secs, thermal = [], []
+    time_heat_steps(heat, heat_secs)
+    sweep = eq._fp32_sweep
+
+    def watched_sweep(*args, **kw):
+        thermal.append(float(args[7].abs().max()))
+        return sweep(*args, **kw)
+    eq._fp32_sweep = watched_sweep
+    eq.fp32_accepted = 0
+    torch.cuda.synchronize()
+    dia.launches = 0
+    chunks, first = [], 1
+    for n in (3, n_steps - 3):
+        t0 = time.perf_counter()
+        r = eq.solve_tm_time_steps(
+            heat, [(first + k) * HOUR for k in range(n)], [HOUR] * n,
+            tol=1e-6, maxiter=20)
+        torch.cuda.synchronize()
+        chunks.append((r, time.perf_counter() - t0))
+        first += n
+    rows = np.concatenate([r for r, _ in chunks])
+    launches = dia.launches
+    if not (rows[:, 5] == 1).all():
+        raise AssertionError(f"tm_box: steps {rows[:, [2, 3, 5]].tolist()}")
+    if launches <= 0:
+        raise AssertionError("tm_box: the DIA kernel never launched")
+    if not (len(thermal) == n_steps and min(thermal) > 0):
+        raise AssertionError(f"tm_box: the f32 sweep ran on {len(thermal)} "
+                             f"steps with max|eps_th| {thermal}")
+    d_it = int(np.abs(rows[:, 2] - golden["rows"][:, 2]).max())
+    if d_it > 1:
+        raise AssertionError(f"tm_box: fixed-point counts "
+                             f"{rows[:, 2].tolist()} vs golden "
+                             f"{golden['rows'][:, 2].tolist()}")
+    errs = {k: within(f"tm_box {k}", v.cpu().numpy(), golden[k], 1e-6)
+            for k, v in (("u", eq.u), ("sig_v", eq.sig_v), ("T", heat.T))}
+    say("tm_box", f"solve_tm_time_steps on GridBox nx=17 (E={box.n_elems}, "
+                  f"N={box.n_nodes}), block-DIA, dense preconditioner, f32 "
+                  f"sweep on: {n_steps} steps converged; "
+                  + tm_summary(chunks, heat_secs)
+                  + f"; max |fixed-point it - golden| {d_it}; the f32 sweep "
+                  f"ran with the thermal strain on {len(thermal)} steps "
+                  f"(max|eps_th| {max(thermal):.2e}), accepted on "
+                  f"{eq.fp32_accepted}/{n_steps}; DIA launches {launches}, "
+                  f"{launches / n_steps:.1f} per step; vs golden "
+                  + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
+                  + " (<=1e-6 max|ref|)")
+    return launches, launches / n_steps
+
+
 def json_child(case_path, result_path):
     """``--json-child``: run sim_cli on the case with the recording
     simulator (and MemorySink without h5py); write the stage records to
@@ -772,6 +1083,9 @@ def main():
     ap.add_argument("--json-child", nargs=2, metavar=("CASE", "RESULT"),
                     help="phase 9's child: run sim_cli on CASE, write the "
                     "stage records to RESULT")
+    ap.add_argument("--phase", choices=("tm", "tm_box"),
+                    help="after the build, run this phase alone (no kernel "
+                    "JSON and no ok line)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -814,6 +1128,12 @@ def main():
     if args.tree:
         print(json.dumps({"tree": args.tree,
                           "kernels": kernel_phase(st, cfg, dev)}), flush=True)
+        print(card, flush=True)
+        return
+    if args.phase:
+        with tempfile.TemporaryDirectory() as tmp:
+            print(tm_phase(st, cfg, tmp) if args.phase == "tm"
+                  else tm_box_phase(st, cfg), flush=True)
         print(card, flush=True)
         return
     kernel_rows = kernel_phase_child(tree)
@@ -903,7 +1223,10 @@ def main():
                f"({elastic_krylov} Krylov); 13 steps converged; 10-step "
                f"chunk: {1e3 * secs10 / len(rows10):.1f} ms/step, "
                f"{rows10[:, 0].mean():.2f} fixed-point it/step, "
-               f"{rows10[:, 2].mean():.1f} Krylov it/step; f32 sweeps "
+               f"{rows10[:, 2].mean():.1f} Krylov it/step (summed over the "
+               f"step's solves, the f32 sweep's included; "
+               f"{rows10[:, 2].sum() / rows10[:, 0].sum():.1f} per "
+               f"fixed-point iteration); f32 sweeps "
                f"accepted {eq.fp32_accepted}/13 steps; DIA launches "
                f"{launches_box}, {dia_per_step:.1f} per step in the chunk; "
                f"peak device memory "
@@ -922,12 +1245,19 @@ def main():
                    f"with Desai)")
         # 9. the JSON driver in a child process ----------------------------- #
         json_launches, json_per_step = json_phase(st, cfg, tmp)
+        # 10. the thermo-mechanical driver on cavern600 --------------------- #
+        tm_launches, tm_per_step = tm_phase(st, cfg, tmp)
+
+    # 11. the coupled chunk on box17: block-DIA and the f32 sweep ---------- #
+    tm_box_launches, tm_box_per_step = tm_box_phase(st, cfg)
 
     # launches of each path, each counted from 0 just before the path ran
     paths = {BAND["name"]: {"main": (launches, band_per_step),
-                            "sim": (sim_launches, sim_per_step)},
+                            "sim": (sim_launches, sim_per_step),
+                            "tm": (tm_launches, tm_per_step)},
              DIA["name"]: {"box": (launches_box, dia_per_step),
-                           "json": (json_launches, json_per_step)}}
+                           "json": (json_launches, json_per_step),
+                           "tm_box": (tm_box_launches, tm_box_per_step)}}
     for row in kernel_rows:
         by_path = paths[row["name"]]
         row["launches"], row["launches_per_step"] = next(

@@ -1,6 +1,6 @@
 """safeincave_torch - PyTorch/CUDA port of safeincave_tpu.
 
-The port goes slice by slice; three are in:
+The port goes slice by slice; four are in:
 
 1. the cavern mechanics main path: band-reordered tet meshes, Spring +
    Viscoelastic + DislocationCreep + ViscoplasticDesai, Dirichlet supports
@@ -14,7 +14,14 @@ The port goes slice by slice; three are in:
    dt-halving retry over any time controller, ``SaveFields`` XDMF output,
    the node/element smoother, ``StepMetrics``, checkpoints, pressure
    schedules, post-processing readers, and the JSON driver
-   (``Simulator_GUI``, ``python -m safeincave_torch.app.sim_cli``).
+   (``Simulator_GUI``, ``python -m safeincave_torch.app.sim_cli``);
+4. the thermal and thermo-mechanical path: ``HeatDiffusion`` with its
+   Dirichlet / Neumann / Robin conditions (``HeatBC``), ``Thermoelastic``
+   and the thermal strain in the momentum fixed point, ``Simulator_T`` /
+   ``Simulator_TM`` over the fused ``solve_tm_time_steps``, checkpoints
+   with the heat field, and the remaining mechanisms of the JSON schema
+   (pressure-solution and Munson-Dawson creep, Mohr-Coulomb and
+   Matsuoka-Nakai viscoplasticity).
 
 Module names follow ``safeincave_tpu`` so each counterpart is easy to find.
 Entry points run on the card unless given ``device="cpu"``.  The package
@@ -24,16 +31,21 @@ jax.
 from ._device import default_device
 from . import utils as Utils  # noqa: N812  (reference-compatible alias)
 from .utils import GPa, MPa, kPa, minute, hour, day, year
-from .materials import (Material, NonElasticElement, Spring, Viscoelastic,
-                        DislocationCreep, ViscoplasticDesai)
+from .materials import (Material, NonElasticElement, Spring, Thermoelastic,
+                        Viscoelastic, DislocationCreep,
+                        PressureSolutionCreep, MunsonDawsonCreep,
+                        ViscoplasticDesai, MohrCoulombViscoplastic,
+                        MatsuokaNakaiViscoplastic)
 from .timecontrol import (TimeControllerBase, TimeController,
                           TimeControllerParabolic, TimeControllerFromList,
                           AdaptiveTimeController, build_time_list_by_dp_limit)
 from .mesh import Grid, GridHandlerGMSH, GridBox
-from .fem import LinearMomentumBase, LinearMomentum, SolverSettings
-from .bcs import MomentumBC
+from .fem import (LinearMomentumBase, LinearMomentum, SolverSettings,
+                  HeatDiffusion)
+from .bcs import MomentumBC, HeatBC
 from .output import SaveFields, ScreenPrinter
-from .simulators import Simulator_M, Simulator_Mout
+from .simulators import (Simulator_M, Simulator_Mout, Simulator_T,
+                         Simulator_TM)
 from .config import Simulator_GUI, run_from_json
 from .checkpoint import save_checkpoint, load_checkpoint
 from .metrics import StepMetrics
@@ -42,7 +54,10 @@ from . import postproc as PostProcessingTools  # noqa: N812
 __all__ = [
     "default_device", "Utils", "GPa", "MPa", "kPa", "minute", "hour", "day",
     "year", "Material", "NonElasticElement", "Spring", "Viscoelastic",
-    "DislocationCreep", "ViscoplasticDesai",
+    "DislocationCreep", "ViscoplasticDesai", "Thermoelastic",
+    "PressureSolutionCreep", "MunsonDawsonCreep", "MohrCoulombViscoplastic",
+    "MatsuokaNakaiViscoplastic", "HeatDiffusion", "HeatBC", "Simulator_T",
+    "Simulator_TM",
     "TimeControllerBase", "TimeController", "TimeControllerParabolic",
     "TimeControllerFromList", "AdaptiveTimeController",
     "build_time_list_by_dp_limit",

@@ -3,12 +3,11 @@
 The full simulation state (displacement, stress and strain, every element's
 state and parameters, temperatures, the time controller's position) is a
 flat dict of arrays saved as one ``.npz`` with the JAX package's keys, so a
-checkpoint written by either package loads into the other (the heat
-equation's keys wait for the heat port).  The port adds
-one key the JAX loader ignores: ``u_last_step``, the displacement the next
-step's Krylov initial guess extrapolates from, without which a resumed run
-starts its first solve from another guess and is not bitwise the straight
-run.
+checkpoint written by either package loads into the other; a heat equation
+adds ``heat_T`` and ``heat_T_old``.  The port adds one key the JAX loader
+ignores: ``u_last_step``, the displacement the next step's Krylov initial
+guess extrapolates from, without which a resumed run starts its first solve
+from another guess and is not bitwise the straight run.
 """
 from __future__ import annotations
 
@@ -20,7 +19,7 @@ import torch
 from .utils import to_numpy as _np
 
 
-def save_checkpoint(path: str, eq, t_control=None,
+def save_checkpoint(path: str, eq, t_control=None, heat_eq=None,
                     extra: dict | None = None):
     """Serialize the full simulation state to ``path`` (.npz)."""
     data = {"u": _np(eq.u), "sig_v": _np(eq.sig_v),
@@ -37,6 +36,9 @@ def save_checkpoint(path: str, eq, t_control=None,
     if t_control is not None:
         data["tc_t"] = np.asarray(t_control.t)
         data["tc_step"] = np.asarray(t_control.step_counter)
+    if heat_eq is not None:
+        data["heat_T"] = _np(heat_eq.T)
+        data["heat_T_old"] = _np(heat_eq.T_old)
     if extra:
         for k, v in extra.items():
             data[f"extra_{k}"] = _np(v)
@@ -44,9 +46,10 @@ def save_checkpoint(path: str, eq, t_control=None,
     np.savez(path, **data)
 
 
-def load_checkpoint(path: str, eq, t_control=None) -> dict:
+def load_checkpoint(path: str, eq, t_control=None, heat_eq=None) -> dict:
     """Restore state saved by :func:`save_checkpoint` (of either package)
-    onto a wired equation of the same mesh and material structure.
+    onto a wired equation (and heat equation) of the same mesh and material
+    structure.
 
     Floating arrays become float64 tensors on ``eq.device``; boolean state
     stays boolean.  Without ``u_last_step`` (a JAX-package checkpoint) the
@@ -72,4 +75,7 @@ def load_checkpoint(path: str, eq, t_control=None) -> dict:
         if t_control is not None and "tc_t" in z:
             t_control.t = float(z["tc_t"])
             t_control.step_counter = int(z["tc_step"])
+        if heat_eq is not None and "heat_T" in z:
+            heat_eq.T = to(z["heat_T"])
+            heat_eq.T_old = to(z["heat_T_old"])
         return {k[6:]: z[k] for k in z.files if k.startswith("extra_")}

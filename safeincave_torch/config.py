@@ -18,21 +18,14 @@ from ._device import default_device
 from .bcs import MomentumBC as momBC
 from .fem import LinearMomentum, SolverSettings
 from .materials import (Material, Spring, Viscoelastic, DislocationCreep,
-                        ViscoplasticDesai)
+                        PressureSolutionCreep, MunsonDawsonCreep,
+                        ViscoplasticDesai, MohrCoulombViscoplastic,
+                        MatsuokaNakaiViscoplastic)
 from .mesh import GridHandlerGMSH
 from .output import SaveFields
 from .simulators import Simulator_M
 from .timecontrol import TimeController
 from .utils import read_json
-
-# element kinds of the JAX package's schema that wait for their port
-_MATERIALS = "ROADMAP.md queue 1, remaining materials"
-_UNPORTED = {
-    "PressureSolutionCreep": "ROADMAP.md queue 1, heat / TM",
-    "MunsonDawsonCreep": _MATERIALS,
-    "MohrCoulombViscoplastic": _MATERIALS,
-    "MatsuokaNakaiViscoplastic": _MATERIALS,
-}
 
 
 class Simulator_GUI:
@@ -122,10 +115,28 @@ class Simulator_GUI:
                                      p["n"], p["beta_1"], p["beta"], p["m"],
                                      p["gamma"], p["sigma_t"], p["alpha_0"],
                                      elem_name, device=dev)
-        if kind in _UNPORTED:
-            raise NotImplementedError(
-                f"element type {kind} is not ported to safeincave_torch yet "
-                f"({_UNPORTED[kind]})")
+        if kind == "PressureSolutionCreep":
+            elem = PressureSolutionCreep(self._get_param(blk, "A"),
+                                         self._get_param(blk, "d"),
+                                         self._get_param(blk, "Q"), elem_name,
+                                         device=dev)
+            self._set_T(blk)
+            return elem
+        if kind == "MunsonDawsonCreep":
+            names = ["A", "Q", "n", "K0", "c", "m", "alpha_w", "beta_w",
+                     "delta", "mu"]
+            elem = MunsonDawsonCreep(*[self._get_param(blk, n)
+                                       for n in names], elem_name, device=dev)
+            self._set_T(blk)
+            return elem
+        if kind in ("MohrCoulombViscoplastic", "MatsuokaNakaiViscoplastic"):
+            names = ["mu_1", "N_1", "cohesion", "friction_angle",
+                     "dilation_angle", "sigma_t"]
+            cls = (MohrCoulombViscoplastic
+                   if kind == "MohrCoulombViscoplastic"
+                   else MatsuokaNakaiViscoplastic)
+            return cls(*[self._get_param(blk, n) for n in names], elem_name,
+                       device=dev)
         raise ValueError(f"Element type {kind} not supported.")
 
     def _set_T(self, blk):

@@ -13,6 +13,14 @@ reproducible from run to run.
 
 Energy bookkeeping: with tensorial Voigt storage, sigma : eps(v) is formed by
 contracting the full symmetric tensors, so no shear factor appears here.
+
+``HeatKernel`` holds the scalar P1 mass and stiffness actions of the implicit
+heat step, with the closed-form tetrahedron integrals of the JAX package:
+consistent mass M_ab = V (1 + delta_ab) / 20 and stiffness
+K_ab = k V grad N_a . grad N_b.  Its node sums go through a
+:class:`NodeGather` and not the cumsum plan: a prefix sum over all 4E
+contributions loses about N eps of relative precision, which float32 (the
+heat solve's Krylov operator) cannot afford.
 """
 from __future__ import annotations
 
@@ -20,6 +28,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from ..utils import padded_bins
 
 F32, F64 = torch.float32, torch.float64
 
@@ -205,3 +215,76 @@ class MomentumKernel:
         out = np.zeros((self.n_nodes, 3, 3))
         np.add.at(out, self.conn_np.reshape(-1), blk.reshape(-1, 3, 3))
         return out
+
+
+@dataclass(frozen=True)
+class NodeGather:
+    """Node-major padded table of the contributions each bin sums.
+
+    Row n of ``idx`` (n_bins, K) lists the flat indices of bin n's
+    contributions in ascending order, K the largest count, padded with the
+    index one past the last contribution (where :meth:`sum` puts a zero).
+    A gather and a row reduction: deterministic on CUDA, where
+    ``index_add_`` is atomic, and each sum has at most K terms."""
+    idx: torch.Tensor       # (n_bins, K) int64
+    n_contrib: int
+
+    @staticmethod
+    def build(keys: np.ndarray, n_bins: int, device) -> "NodeGather":
+        """Table summing contribution k into bin ``keys[k]``."""
+        idx = padded_bins(keys, n_bins)
+        return NodeGather(torch.as_tensor(idx, device=device),
+                          int(np.size(keys)))
+
+    def sum(self, contrib: torch.Tensor) -> torch.Tensor:
+        """(n_bins,) sums of the flat contributions (n_contrib,)."""
+        flat = torch.cat([contrib.reshape(-1), contrib.new_zeros(1)])
+        return flat[self.idx].sum(1)
+
+
+class HeatKernel:
+    """Scalar P1 heat operator pieces for one mesh on one device; every
+    method computes in the dtype of the field (or coefficient) it is
+    given."""
+
+    def __init__(self, grid, device):
+        self.grid = grid
+        self.device = torch.device(device)
+        self.n_nodes = grid.n_nodes
+        self.n_elems = grid.n_elems
+        conn = np.asarray(grid.conn, dtype=np.int64)
+        self.conn = torch.as_tensor(conn, device=self.device)
+        gN = torch.as_tensor(np.asarray(grid.grad_N), device=self.device)
+        vol = torch.as_tensor(np.asarray(grid.volumes), device=self.device)
+        self._gN = {F64: gN, F32: gN.to(F32)}                     # (E, 4, 3)
+        self._vol = {F64: vol, F32: vol.to(F32)}                  # (E,)
+        self.gather = NodeGather.build(conn.reshape(-1), grid.n_nodes,
+                                       self.device)
+
+    def mass_apply(self, coef: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
+        """(coef T, v) with DG0 coef, P1 T and v."""
+        cv = coef.to(T.dtype) * self._vol[T.dtype]
+        T_e = T[self.conn]                                        # (E, 4)
+        m = (T_e + T_e.sum(1, keepdim=True)) * (cv / 20.0)[:, None]
+        return self.gather.sum(m)
+
+    def stiffness_apply(self, k: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
+        """(k grad T, grad v) with DG0 conductivity."""
+        gN = self._gN[T.dtype]
+        kv = k.to(T.dtype) * self._vol[T.dtype]
+        gT = (T[self.conn][:, :, None] * gN).sum(1)               # (E, 3)
+        f = (gT[:, None, :] * gN).sum(2) * kv[:, None]            # (E, 4)
+        return self.gather.sum(f)
+
+    def mass_diagonal(self, coef: torch.Tensor) -> torch.Tensor:
+        d = (coef * self._vol[coef.dtype] * (2.0 / 20.0))[:, None]
+        return self.gather.sum(d.expand(-1, 4))
+
+    def stiffness_diagonal(self, k: torch.Tensor) -> torch.Tensor:
+        gN = self._gN[k.dtype]
+        d = (gN * gN).sum(2) * (k * self._vol[k.dtype])[:, None]
+        return self.gather.sum(d)
+
+    def nodes_to_elems(self, T: torch.Tensor) -> torch.Tensor:
+        """DG0 projection of a P1 field: the vertex average."""
+        return T[self.conn].mean(1)

@@ -4,7 +4,7 @@ Port of ``safeincave_tpu/fem/momentum.py`` (the always-fresh, always-tight
 float64 fixed point that the cavern benchmark runs).  One linearized step:
 
     CT  = (C_inv + dt(1-theta) G)^-1                       (consistent tangent)
-    eps_rhs = eps_ne_k - dt(1-theta)(B + G:sigma_k)
+    eps_rhs = eps_ne_k + eps_th - dt(1-theta)(B + G:sigma_k)
     a(du, v) = <CT eps(du), eps(v)>          (matrix-free stiffness action)
     L(v)     = body + neumann + <CT eps_rhs, eps(v)>
     solve by preconditioned Krylov with Dirichlet masking/lifting
@@ -15,8 +15,12 @@ the host, with the same update sequence.  On CUDA the early iterations of a
 step run as a float32 sweep (``SolverSettings.fp32_phase``) before the f64
 finish, as the JAX package does on an accelerator.
 
+``solve_tm_time_steps`` advances the coupled thermo-mechanical step (heat
+step, nodal-to-element temperature, thermal strain, fixed point, commit)
+over a chunk of time steps.
+
 Not ported yet (queued in ROADMAP.md): tangent lagging, adaptive inner
-tolerances, the bf16 dense preconditioner, halo mode and thermal coupling.
+tolerances, the bf16 dense preconditioner and halo mode.
 """
 from __future__ import annotations
 
@@ -450,6 +454,18 @@ class LinearMomentumBase:
         self.eps_tot_v = self.kernel.strain(self.u)
         return self.eps_tot_v
 
+    def compute_eps_th(self):
+        """Thermal strain (E, 6) of ``Temp - T0``, summed over the
+        material's thermoelastic elements; None without one, so that a
+        material without thermal coupling solves what it always did."""
+        if not self.mat.elems_th:
+            return None
+        dT = self.Temp - self.T0
+        eps_th = self.mat.elems_th[0].eps_th_voigt(dT)
+        for th in self.mat.elems_th[1:]:
+            eps_th = eps_th + th.eps_th_voigt(dT)
+        return eps_th
+
     def compute_eps_ne_k(self, dt):
         """Sum of the mechanisms' theta-scheme predictors (E, 6)."""
         eps_k = torch.zeros((self.n_elems, 6), dtype=F64, device=self.device)
@@ -612,8 +628,8 @@ class LinearMomentum(LinearMomentumBase):
         self.run_after_solve()
 
     # ------------------------------------------------------------------ #
-    def _fp32_sweep(self, states, sv, eps_v, u, b_ext, mask, u_bc, dt,
-                    maxiter, P):
+    def _fp32_sweep(self, states, sv, eps_v, u, b_ext, mask, u_bc, eps_th,
+                    dt, maxiter, P):
         """The f32 sweep of a step's fixed point and its health gate.
 
         The f64 body's update sequence runs in float32 (materials,
@@ -639,6 +655,7 @@ class LinearMomentum(LinearMomentumBase):
         solve32 = self._get_solve32()
         b32, mask32, ubc32 = b_ext.to(F32), mask.to(F32), u_bc.to(F32)
         Temp32 = self.Temp.to(F32)
+        eps_th32 = None if eps_th is None else eps_th.to(F32)
         dt = float(np.float32(dt))
         phi1, phi2 = dt * theta, dt * (1 - theta)
         st32 = [_to(st, F32) for st in states]
@@ -658,6 +675,8 @@ class LinearMomentum(LinearMomentumBase):
                 st = e.f_eps_k(st, phi1, phi2)
                 eps_ne_k = eps_ne_k + st["eps_k"]
                 states2.append(st)
+            if eps_th32 is not None:
+                eps_ne_k = eps_ne_k + eps_th32
             eps_rhs = eps_ne_k - phi2 * (B6 + kern.apply66(kern.prep(G),
                                                            sv_k))
             b = b32 + kern.internal_force(kern.apply66(CT, eps_rhs))
@@ -709,13 +728,15 @@ class LinearMomentum(LinearMomentumBase):
         return new, sv64, eps64, u64, ite, err, kry_tot, kry
 
     def _fixed_point(self, states, sv, eps_v, u, b_ext, mask, u_bc, dt, tol,
-                     maxiter, fp32_on=True):
+                     maxiter, fp32_on=True, eps_th=None):
         """One time step's fixed-point iteration: tangent -> CT -> eps_rhs
         -> Krylov -> strain -> stress -> ISV increment -> rates ->
         strain-change error, until ``err <= tol`` (after at least one f64
         iteration), ``maxiter``, or a non-finite error.  When the f32 phase
         is enabled (and ``fp32_on``), :meth:`_fp32_sweep` runs first and
-        its iterations count towards ``maxiter``.
+        its iterations count towards ``maxiter``.  ``eps_th`` is the step's
+        thermal strain (:meth:`compute_eps_th`), constant over the
+        iteration.
 
         A diverged or stalled solve, or a non-finite stress, sets the error
         to inf so the step fails instead of reading as converged.
@@ -738,7 +759,7 @@ class LinearMomentum(LinearMomentumBase):
                 and self.solver.fp32_enabled(self.device)):
             (states, sv, eps_v, u, ite, err, kry_tot, kry) = \
                 self._fp32_sweep(states, sv, eps_v, u, b_ext, mask, u_bc,
-                                 dt, maxiter, P)
+                                 eps_th, dt, maxiter, P)
         while (err > tol and ite < maxiter and math.isfinite(err)) or first:
             first = False
             sv_k = sv
@@ -753,6 +774,8 @@ class LinearMomentum(LinearMomentumBase):
                 eps_ne_k = eps_ne_k + st["eps_k"]
                 states2.append(st)
             G_sk = kern.apply66(G_p, sv_k)
+            if eps_th is not None:
+                eps_ne_k = eps_ne_k + eps_th
             eps_rhs = eps_ne_k - phi2 * (B6 + G_sk)
             b = b_ext + kern.internal_force(kern.apply66(CT, eps_rhs))
             x0 = mask * u + free * u_bc
@@ -823,7 +846,8 @@ class LinearMomentum(LinearMomentumBase):
         (states, sv, eps_v, u, sv_k, ite, err, stats) = self._fixed_point(
             [e.state for e in self.mat.elems_ne], self.sig_v, self.eps_tot_v,
             u0, *self._step_inputs(t), dt, tol, maxiter,
-            fp32_on=not getattr(self, "_fp32_disable", False))
+            fp32_on=not getattr(self, "_fp32_disable", False),
+            eps_th=self.compute_eps_th())
         for e, st in zip(self.mat.elems_ne, states):
             e.state = st
         self.sig_v, self.eps_tot_v, self.u = sv, eps_v, u
@@ -847,6 +871,7 @@ class LinearMomentum(LinearMomentumBase):
         u_prev = getattr(self, "_u_last_step", None)
         if u_prev is None:
             u_prev = u
+        eps_th = self.compute_eps_th()
         rows, failed = [], False
         for t, dt in zip(ts, dts):
             if failed:
@@ -855,7 +880,8 @@ class LinearMomentum(LinearMomentumBase):
             x0 = u + (u - u_prev)
             (st_n, sv_n, eps_n, u_n, sv_k, ite, err, stats) = \
                 self._fixed_point(states, sv, eps_v, x0,
-                                  *self._step_inputs(t), dt, tol, maxiter)
+                                  *self._step_inputs(t), dt, tol, maxiter,
+                                  eps_th=eps_th)
             conv = math.isfinite(err) and err <= tol
             if conv:
                 states = self._commit(st_n, sv_n, sv_k, dt)
@@ -878,5 +904,65 @@ class LinearMomentum(LinearMomentumBase):
         else:
             self.krylov_total = 0
             self.solver_stats = (0, float("nan"))
+        self.run_after_solve()
+        return stats
+
+    def solve_tm_time_steps(self, heat, ts, dts, tol=1e-6, maxiter=20):
+        """Advance up to ``len(ts)`` coupled thermo-mechanical steps; changes
+        this equation and ``heat``.
+
+        Per step: implicit heat step -> nodal temperature averaged onto the
+        elements -> thermal strain -> extrapolated Krylov guess -> fixed
+        point -> commit iff it converged.  On the first step whose fixed
+        point does not reach ``tol`` the equation and the heat field are
+        left at that step's entry state (the dt-retry restore point) and
+        the remaining steps are skipped.
+
+        Returns a (K, 6) float array of rows ``[heat_iters, heat_res,
+        fp_iters, error, krylov_total, converged]``; rows after the first
+        ``converged == 0`` are ``[0, 0, 0, 1, 0, 0]``."""
+        states = [e.state for e in self.mat.elems_ne]
+        sv, eps_v, u = self.sig_v, self.eps_tot_v, self.u
+        u_prev = getattr(self, "_u_last_step", None)
+        if u_prev is None:
+            u_prev = u
+        T, T_old = heat.T, heat.T_old
+        rows, failed = [], False
+        for t, dt in zip(ts, dts):
+            if failed:
+                rows.append([0.0, 0.0, 0.0, 1.0, 0.0, 0.0])
+                continue
+            T_new, h_it, h_res = heat.step(T, T_old, t, dt)
+            self.Temp = heat.kernel.nodes_to_elems(T_new)
+            x0 = u + (u - u_prev)
+            (st_n, sv_n, eps_n, u_n, sv_k, ite, err, stats) = \
+                self._fixed_point(states, sv, eps_v, x0,
+                                  *self._step_inputs(t), dt, tol, maxiter,
+                                  eps_th=self.compute_eps_th())
+            conv = math.isfinite(err) and err <= tol
+            if conv:
+                states = self._commit(st_n, sv_n, sv_k, dt)
+                u_prev = u
+                sv, eps_v, u = sv_n, eps_n, u_n
+                T = T_old = T_new
+            failed = not conv
+            rows.append([float(h_it), float(h_res), float(ite), err,
+                         float(stats[0]), float(conv)])
+        for e, st in zip(self.mat.elems_ne, states):
+            e.state = st
+        self.sig_v, self.eps_tot_v, self.u = sv, eps_v, u
+        self._u_last_step = u_prev
+        self._last_sv_k = sv
+        heat.T, heat.T_old = T, T_old
+        self.Temp = heat.get_T_elems()
+        stats = np.asarray(rows, dtype=np.float64).reshape(-1, 6)
+        done = np.nonzero(stats[:, 5] > 0.5)[0]
+        if done.size:
+            last = stats[done[-1]]
+            heat.solver_stats = (int(last[0]), float(last[1]))
+            self.krylov_total = int(last[4])
+        else:
+            heat.solver_stats = (0, float("nan"))
+            self.krylov_total = 0
         self.run_after_solve()
         return stats

@@ -1,9 +1,13 @@
-"""Main-path constitutive suite: batched Voigt models on tensors."""
+"""Constitutive suite: batched Voigt models on tensors."""
 from .base import NonElasticElement
-from .elastic import Spring
+from .elastic import Spring, Thermoelastic
 from .material import Material
-from .creep import DislocationCreep, Viscoelastic
-from .viscoplastic import ViscoplasticDesai
+from .creep import (DislocationCreep, MunsonDawsonCreep,
+                    PressureSolutionCreep, Viscoelastic)
+from .viscoplastic import (MatsuokaNakaiViscoplastic,
+                           MohrCoulombViscoplastic, ViscoplasticDesai)
 
-__all__ = ["NonElasticElement", "Spring", "Material", "DislocationCreep",
-           "Viscoelastic", "ViscoplasticDesai"]
+__all__ = ["NonElasticElement", "Spring", "Thermoelastic", "Material",
+           "DislocationCreep", "PressureSolutionCreep", "MunsonDawsonCreep",
+           "Viscoelastic", "ViscoplasticDesai", "MohrCoulombViscoplastic",
+           "MatsuokaNakaiViscoplastic"]

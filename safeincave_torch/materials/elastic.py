@@ -1,14 +1,17 @@
-"""Linear elastic element (port of safeincave_tpu/materials/elastic.py).
+"""Linear elastic and thermoelastic elements (port of
+safeincave_tpu/materials/elastic.py).
 
 Stiffness and compliance are closed-form isotropic operators, built on the
-host in numpy once per material.
+host in numpy once per material.  The thermal strain is a device operation:
+the coupled step evaluates it once per time step.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..utils import dotdot, voigt_to_tensor
+from .._device import default_device
+from ..utils import dotdot, iso6, voigt_to_tensor
 from .base import _as_voigt
 
 
@@ -65,3 +68,30 @@ class Spring:
         sv = _as_voigt(stress)
         C_inv = torch.as_tensor(self.C_inv, device=sv.device)
         self.eps_e = voigt_to_tensor(dotdot(C_inv, sv))
+
+
+class Thermoelastic:
+    """Thermal strain eps_th = alpha dT I."""
+
+    def __init__(self, alpha, name: str = "thermoelastic", device=None):
+        self.device = torch.device(device) if device else default_device()
+        self.alpha = torch.as_tensor(np.asarray(alpha, dtype=np.float64),
+                                     device=self.device)
+        self.name = name
+        self.n_elems = self.alpha.shape[0]
+        self.eps_th_v = torch.zeros((self.n_elems, 6), dtype=torch.float64,
+                                    device=self.device)
+
+    def eps_th_voigt(self, dT: torch.Tensor) -> torch.Tensor:
+        """(E, 6) Voigt thermal strain of the temperature change dT (E,),
+        in dT's dtype: a float32 dT (the f32 fixed-point sweep) stays
+        float32."""
+        return (self.alpha.to(dT.dtype) * dT)[:, None] * iso6(dT)
+
+    def compute_eps_th(self, dT):
+        self.eps_th_v = self.eps_th_voigt(
+            torch.as_tensor(dT, dtype=torch.float64).to(self.device))
+
+    @property
+    def eps_th(self):
+        return voigt_to_tensor(self.eps_th_v)

@@ -1,7 +1,8 @@
 """Composite material container (port of safeincave_tpu/materials/material.py).
 
-Aggregates the elastic stiffness and the inelastic G/B operators, and builds
-the consistent tangent CT = (C_inv + dt(1-theta) G)^-1 with the reference's
+Aggregates the elastic stiffness, the thermoelastic strain elements, the
+thermal properties and the inelastic G/B operators, and builds the
+consistent tangent CT = (C_inv + dt(1-theta) G)^-1 with the reference's
 per-element elastic fallback on singular tangents.
 """
 from __future__ import annotations
@@ -11,6 +12,7 @@ import torch
 
 from .._device import default_device
 from ..linalg import inv6x6_fast
+from .base import _as_voigt
 
 
 class Material:
@@ -18,6 +20,7 @@ class Material:
         self.n_elems = n_elems
         self.device = torch.device(device) if device else default_device()
         self.elems_ne = []
+        self.elems_th = []
         self.elems_e = []
         self._C = np.zeros((n_elems, 6, 6))
         self._C_inv = np.zeros((n_elems, 6, 6))
@@ -37,6 +40,15 @@ class Material:
     def set_density(self, density):
         self.density = np.asarray(density, dtype=np.float64)
 
+    def set_specific_heat_capacity(self, cp):
+        self.cp = np.asarray(cp, dtype=np.float64)
+
+    def set_thermal_conductivity(self, k):
+        self.k = np.asarray(k, dtype=np.float64)
+
+    def set_thermal_expansion(self, alpha_th):
+        self.alpha_th = np.asarray(alpha_th, dtype=np.float64)
+
     def add_to_elastic(self, elem):
         elem.initialize()
         self._C = self._C + elem.C
@@ -49,6 +61,9 @@ class Material:
 
     def add_to_non_elastic(self, elem):
         self.elems_ne.append(elem)
+
+    def add_to_thermoelastic(self, elem):
+        self.elems_th.append(elem)
 
     def f_tangent_all(self, states, sv6, T, dt, theta):
         """Per-element tangents + summed (G, B)."""
@@ -74,3 +89,15 @@ class Material:
         mat = C_inv + dt * (1 - theta) * G
         CT, ok = inv6x6_fast(mat)
         return torch.where(ok[:, None, None], CT, fallback)
+
+    # -- reference-compatible mutating API -------------------------------- #
+    def compute_G_B(self, stress, dt, theta, T):
+        sv6 = _as_voigt(stress).to(self.device)
+        T = torch.as_tensor(T, dtype=torch.float64).to(self.device)
+        states, self.G, self.B6 = self.f_tangent_all(
+            [e.state for e in self.elems_ne], sv6, T, dt, theta)
+        for e, st in zip(self.elems_ne, states):
+            e.state = st
+
+    def compute_CT(self, dt, theta):
+        self.CT = self.f_CT(self.G, dt, theta)

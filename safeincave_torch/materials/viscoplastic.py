@@ -1,8 +1,12 @@
-"""Desai viscoplasticity (port of ``ViscoplasticDesai`` from
-safeincave_tpu/materials/viscoplastic.py).
+"""Viscoplastic elements: Desai, Mohr-Coulomb (Drucker-Prager) and
+Matsuoka-Nakai (port of safeincave_tpu/materials/viscoplastic.py).
 
-Compression-positive, MPa-scaled stresses inside the model and a Perzyna
-overstress multiplier.  The hardening linearization (r, h, Q, P) is the
+All three use compression-positive, MPa-scaled stresses inside the model and
+a Perzyna overstress multiplier.  Mohr-Coulomb and Matsuoka-Nakai are
+perfectly plastic (no internal variable) with the Drucker-Prager
+non-associated flow direction, and their tangent is the exact flow Jacobian.
+
+The Desai hardening linearization (r, h, Q, P) is the
 reference's *literal* forward differences, reproduced exactly (stale-rate
 base, 1e-4 alpha probe, 0.1 Pa stress probes): the published trajectories
 depend on them.  Only the flow Jacobian E is exact.  All guards (J2 floor,
@@ -13,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..linalg import eigvalsh3x3
 from ..utils import MPa, iso6, norm_voigt, voigt_to_tensor, voigt_weight
 from .base import NonElasticElement
 
@@ -293,3 +298,129 @@ class ViscoplasticDesai(NonElasticElement):
     @property
     def P(self):
         return voigt_to_tensor(self.state["P"])
+
+
+def _dp_flow(s, alpha_Q):
+    """Drucker-Prager non-associated flow direction (E, 6), with I1 and the
+    floored J2, from compression-positive components."""
+    sxx, syy, szz, sxy, sxz, syz = s.unbind(-1)
+    I1 = sxx + syy + szz
+    I2 = sxx * syy + syy * szz + sxx * szz - sxy ** 2 - syz ** 2 - sxz ** 2
+    J2 = torch.clamp(I1 ** 2 / 3.0 - I2, min=1e-20)
+    inv2 = 1.0 / (2.0 * torch.sqrt(J2))
+    dJ2 = torch.stack([(2. / 3.) * I1 - (syy + szz),
+                       (2. / 3.) * I1 - (sxx + szz),
+                       (2. / 3.) * I1 - (sxx + syy),
+                       2 * sxy, 2 * sxz, 2 * syz], dim=-1)
+    return inv2[:, None] * dJ2 - alpha_Q[:, None] * iso6(s), I1, J2
+
+
+def _perzyna_cutoff_rate(s, F_shear, dQdS, I1, p):
+    """(rate (E, 6), Fvp (E,)) of a shear yield function with the tension
+    cut-off ``-I1/3 - sigma_t``: the larger of the two drives the flow, the
+    cut-off along the hydrostatic axis."""
+    F_tension = -I1 / 3.0 - p["sigma_t"]
+    Fvp = torch.maximum(F_shear, F_tension)
+    is_tension = F_tension > F_shear
+    dQdS = torch.where(is_tension[:, None], -iso6(s) / 3.0, dQdS)
+    Fvp_safe = torch.where(Fvp > 0, Fvp, 1.0)
+    lmbda = torch.where(Fvp > 0, p["mu_1"] * Fvp_safe ** p["N_1"], 0.0)
+    return -dQdS * lmbda[:, None], Fvp
+
+
+class _PerfectViscoplastic(NonElasticElement):
+    """A viscoplastic element without internal variables whose
+    ``_rate_static(sv6, p)`` returns (rate, Fvp)."""
+
+    F_0 = 1.0   # the overstress is normalised by 1 MPa
+
+    def __init__(self, n_elems, name, device, cohesion, friction_angle,
+                 dilation_angle):
+        super().__init__(n_elems, name, device)
+        self.cohesion = np.asarray(cohesion, dtype=np.float64)
+        self.friction_angle = np.asarray(friction_angle, dtype=np.float64)
+        self.dilation_angle = np.asarray(dilation_angle, dtype=np.float64)
+        self.state["Fvp"] = self._zeros(n_elems)
+
+    def _rate(self, sv6, isv, T, p):
+        return self._rate_static(sv6, p)[0]
+
+    def f_rate(self, state, sv6, phi1, T):
+        new = dict(state)
+        new["rate"], new["Fvp"] = self._rate_static(sv6, self._p(sv6.dtype))
+        return new
+
+    @property
+    def Fvp(self):
+        return self.state["Fvp"]
+
+
+class MohrCoulombViscoplastic(_PerfectViscoplastic):
+    """Drucker-Prager circumscription of Mohr-Coulomb with a tension
+    cut-off; non-associated flow through the dilation angle."""
+
+    def __init__(self, mu_1, N_1, cohesion, friction_angle, dilation_angle,
+                 sigma_t, name: str = "mohr_coulomb", device=None):
+        super().__init__(len(mu_1), name, device, cohesion, friction_angle,
+                         dilation_angle)
+        sin_phi, cos_phi = np.sin(self.friction_angle), \
+            np.cos(self.friction_angle)
+        sin_psi = np.sin(self.dilation_angle)
+        sq3 = np.sqrt(3.0)
+        t = self._tensor
+        self.params = {
+            "mu_1": t(mu_1), "N_1": t(N_1), "sigma_t": t(sigma_t),
+            "alpha_F": t(2.0 * sin_phi / (sq3 * (3.0 - sin_phi))),
+            "k_F": t(6.0 * self.cohesion * cos_phi / (sq3 * (3.0 - sin_phi))),
+            "alpha_Q": t(2.0 * sin_psi / (sq3 * (3.0 - sin_psi))),
+        }
+
+    @staticmethod
+    def _rate_static(sv6, p):
+        s = _cp_mpa(sv6)
+        dQdS, I1, J2 = _dp_flow(s, p["alpha_Q"])
+        F_shear = torch.sqrt(J2) - p["alpha_F"] * I1 - p["k_F"]
+        return _perzyna_cutoff_rate(s, F_shear, dQdS, I1, p)
+
+
+class MatsuokaNakaiViscoplastic(_PerfectViscoplastic):
+    """Matsuoka-Nakai yield (the obliquity form on the principal stresses,
+    from the analytic 3x3 eigenvalues) with the Drucker-Prager flow."""
+
+    def __init__(self, mu_1, N_1, cohesion, friction_angle, dilation_angle,
+                 sigma_t, name: str = "matsuoka_nakai", device=None):
+        super().__init__(len(mu_1), name, device, cohesion, friction_angle,
+                         dilation_angle)
+        sin_phi, cos_phi = np.sin(self.friction_angle), \
+            np.cos(self.friction_angle)
+        sin_psi = np.sin(self.dilation_angle)
+        safe_sin = np.where(np.abs(sin_phi) < 1e-10, 1.0, sin_phi)
+        shift = np.where(np.abs(sin_phi) < 1e-10, 0.0,
+                         self.cohesion * cos_phi / safe_sin)
+        t = self._tensor
+        self.params = {
+            "mu_1": t(mu_1), "N_1": t(N_1), "sigma_t": t(sigma_t),
+            "k_nfc": t(np.sqrt(2.0) * sin_phi),
+            "cohesive_shift": t(shift),
+            "alpha_Q": t(2.0 * sin_psi / (np.sqrt(3.0) * (3.0 - sin_psi))),
+        }
+
+    @staticmethod
+    def _rate_static(sv6, p):
+        s = _cp_mpa(sv6)
+        eig = eigvalsh3x3(voigt_to_tensor(s))               # ascending
+        sig3_s = eig[:, 0] + p["cohesive_shift"]
+        sig2_s = eig[:, 1] + p["cohesive_shift"]
+        sig1_s = eig[:, 2] + p["cohesive_shift"]
+
+        d12 = torch.clamp(sig1_s + sig2_s, min=1e-20)
+        d23 = torch.clamp(sig2_s + sig3_s, min=1e-20)
+        d31 = torch.clamp(sig3_s + sig1_s, min=1e-20)
+        sin2 = (((sig1_s - sig2_s) / d12) ** 2
+                + ((sig2_s - sig3_s) / d23) ** 2
+                + ((sig3_s - sig1_s) / d31) ** 2)
+        f_nfc = torch.sqrt(sin2 + 1e-30) - p["k_nfc"]
+        p_mean = torch.clamp((sig1_s + sig2_s + sig3_s) / 3.0, min=1e-20)
+
+        dQdS, I1, _ = _dp_flow(s, p["alpha_Q"])
+        return _perzyna_cutoff_rate(s, f_nfc * p_mean, dQdS, I1, p)

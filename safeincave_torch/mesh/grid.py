@@ -13,6 +13,7 @@ import os
 import numpy as np
 import torch
 
+from ..utils import padded_bins
 from .msh_io import read_msh, MshData
 
 
@@ -136,15 +137,11 @@ class Grid:
         self.smooth_elem_idx = flat_elems
         self.smooth_weights = (self.volumes[flat_elems]
                                / vol_sum_at_node[flat_nodes])
-        order = np.argsort(flat_nodes, kind="stable")
-        counts = np.bincount(flat_nodes, minlength=self.n_nodes)
-        starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
-        rank = np.arange(order.size) - starts[flat_nodes[order]]
-        K = int(counts.max()) if counts.size else 0
-        self._elem_of = np.zeros((self.n_nodes, K), dtype=np.int64)
-        self._w_of = np.zeros((self.n_nodes, K))
-        self._elem_of[flat_nodes[order], rank] = flat_elems[order]
-        self._w_of[flat_nodes[order], rank] = self.smooth_weights[order]
+        corner = padded_bins(flat_nodes, self.n_nodes)
+        pad = corner == flat_nodes.size
+        corner = np.where(pad, 0, corner)
+        self._elem_of = np.where(pad, 0, flat_elems[corner])
+        self._w_of = np.where(pad, 0.0, self.smooth_weights[corner])
         self._smoother_on = {}
 
     def _smoother(self, device):

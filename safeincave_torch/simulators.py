@@ -1,5 +1,4 @@
-"""Simulation drivers (port of the mechanics drivers of
-``safeincave_tpu/simulators.py``).
+"""Simulation drivers (port of ``safeincave_tpu/simulators.py``).
 
 * ``Simulator_M``: theta-scheme time loop over a momentum equation with
   fixed-point iteration (tol 1e-8, <= 40 iterations), dt-halving retry
@@ -9,8 +8,12 @@
   through ``LinearMomentum.solve_time_steps``; a step that fails inside a
   chunk rewinds to the per-step retry flow.
 * ``Simulator_Mout``: the same loop without dt-retry.
-
-The thermal and thermo-mechanical drivers wait for the heat equation's port.
+* ``Simulator_T``: the heat-only loop, fused between output boundaries
+  through ``HeatDiffusion.solve_steps``.
+* ``Simulator_TM``: heat step, then the momentum fixed point (tol 1e-6,
+  <= 20 iterations) with one-way temperature coupling, fused through
+  ``LinearMomentum.solve_tm_time_steps``; the dt-halving retry restores the
+  heat field together with the mechanical state.
 """
 from __future__ import annotations
 
@@ -32,6 +35,27 @@ class Simulator(ABC):
     @abstractmethod
     def run(self):
         ...
+
+
+def _planned_steps(tc, chunk):
+    """Advance ``tc`` over up to ``chunk`` steps; returns (ts, dts)."""
+    ts, dts = [], []
+    while tc.keep_looping() and len(ts) < chunk:
+        tc.advance_time()
+        ts.append(tc.t)
+        dts.append(tc.dt)
+    return ts, dts
+
+
+def _output_cap(outputs, cap):
+    """``cap`` cut to the next save of every output; 1 when an output
+    cannot say when it saves next."""
+    for output in outputs:
+        fn = getattr(output, "calls_until_next_keep", None)
+        if fn is None:
+            return 1
+        cap = min(cap, fn())
+    return max(int(cap), 1)
 
 
 class Simulator_M(Simulator):
@@ -88,11 +112,7 @@ class Simulator_M(Simulator):
         if ("solve_time_step" in eq.__dict__
                 or "solve_time_steps" in eq.__dict__):
             return 1
-        for output in self.outputs:
-            fn = getattr(output, "calls_until_next_keep", None)
-            if fn is None:
-                return 1
-            cap = min(cap, fn())
+        cap = _output_cap(self.outputs, cap)
         if self.checkpoint_every:
             s0 = self.t_control.step_counter
             cap = min(cap, self.checkpoint_every
@@ -109,11 +129,7 @@ class Simulator_M(Simulator):
         re-attempts exactly that step."""
         eq, tc = self.eq_mom, self.t_control
         s0, t0 = tc.step_counter, tc.t
-        ts, dts = [], []
-        while tc.keep_looping() and len(ts) < chunk:
-            tc.advance_time()
-            ts.append(tc.t)
-            dts.append(tc.dt)
+        ts, dts = _planned_steps(tc, chunk)
         if not ts:
             return True
         t_wall0 = time.time()
@@ -338,3 +354,243 @@ class Simulator_M(Simulator):
 class Simulator_Mout(Simulator_M):
     """Mechanics driver without dt-retry."""
     max_dt_cuts = 0
+
+
+class Simulator_T(Simulator):
+    """Thermal-only driver."""
+
+    def __init__(self, eq_heat, t_control, outputs,
+                 compute_elastic_response: bool = True,
+                 fused_steps: int | str = "auto"):
+        self.eq_heat = eq_heat
+        self.t_control = t_control
+        self.outputs = outputs
+        self.fused_steps = fused_steps
+        ScreenPrinter.reset_instance()
+        self.screen = ScreenPrinter(eq_heat.grid, eq_heat.solver, eq_heat.mat,
+                                    outputs, t_control.time_unit)
+
+    def _plan_chunk_size(self) -> int:
+        cap = 64 if self.fused_steps == "auto" else self.fused_steps
+        if not cap or cap <= 1:
+            return 1
+        heat = self.eq_heat
+        if not hasattr(heat, "solve_steps") or "solve" in heat.__dict__:
+            return 1
+        return _output_cap(self.outputs, cap)
+
+    def run(self):
+        tc = self.t_control
+        for output in self.outputs:
+            output.initialize()
+        for output in self.outputs:
+            output.save_fields(0)
+
+        while tc.keep_looping():
+            chunk = self._plan_chunk_size()
+            if chunk > 1:
+                s0 = tc.step_counter
+                ts, dts = _planned_steps(tc, chunk)
+                stats = self.eq_heat.solve_steps(ts, dts)
+                for k in range(len(ts)):
+                    current_time = "%.3f" % (ts[k] / tc.time_conversion)
+                    self.screen.print_row([
+                        s0 + 1 + k, dts[k] / tc.time_conversion,
+                        f"{current_time} / "
+                        f"{tc.t_final / tc.time_conversion}",
+                        int(stats[k, 0]), float(stats[k, 1]),
+                    ])
+                for output in self.outputs:
+                    output.skip_calls(len(ts) - 1)
+                for output in self.outputs:
+                    output.save_fields(ts[-1])
+                continue
+            tc.advance_time()
+            t, dt = tc.t, tc.dt
+            self.eq_heat.solve(t, dt)
+            for output in self.outputs:
+                output.save_fields(t)
+            current_time = "%.3f" % (t / tc.time_conversion)
+            self.screen.print_row([
+                tc.step_counter, tc.dt / tc.time_conversion,
+                f"{current_time} / {tc.t_final / tc.time_conversion}", 0, 0,
+            ])
+
+        self.screen.close()
+        for output in self.outputs:
+            output.save_mesh()
+
+
+class Simulator_TM(Simulator):
+    """One-way coupled thermo-mechanics."""
+
+    tol = 1e-6
+    maxiter = 20
+    max_dt_cuts = 3
+
+    def __init__(self, eq_mom, eq_heat, t_control, outputs,
+                 compute_elastic_response: bool = True,
+                 fused_steps: int | str = "auto"):
+        self.eq_mom = eq_mom
+        self.eq_heat = eq_heat
+        self.t_control = t_control
+        self.outputs = outputs
+        self.compute_elastic_response = compute_elastic_response
+        self.fused_steps = fused_steps
+        ScreenPrinter.reset_instance()
+        self.screen = ScreenPrinter(eq_mom.grid, eq_mom.solver, eq_mom.mat,
+                                    outputs, t_control.time_unit)
+
+    # ------------------------------------------------------------------ #
+    def _plan_chunk_size(self) -> int:
+        """Steps per fused ``solve_tm_time_steps`` call (see
+        ``Simulator_M._plan_chunk_size``): a chunk commits only its
+        converged prefix, and a failed step rewinds to the per-step
+        dt-retry flow."""
+        cap = self.fused_steps
+        if cap == "auto":
+            cap = 64
+        if not cap or cap <= 1:
+            return 1
+        eq, heat = self.eq_mom, self.eq_heat
+        if not hasattr(eq, "solve_tm_time_steps"):
+            return 1
+        if type(eq).run_after_solve is not LinearMomentumBase.run_after_solve:
+            return 1
+        if ("solve_time_step" in eq.__dict__
+                or "solve_tm_time_steps" in eq.__dict__
+                or "solve" in heat.__dict__):
+            return 1
+        return _output_cap(self.outputs, cap)
+
+    def _run_fused_chunk(self, chunk: int) -> bool:
+        """Advance up to ``chunk`` fused TM steps.  Returns True when every
+        planned step converged; on a failed step the equation and the heat
+        field hold that step's entry state, the controller is rewound to
+        it, and the per-step dt-retry flow re-attempts it."""
+        eq, heat, tc = self.eq_mom, self.eq_heat, self.t_control
+        s0, t0 = tc.step_counter, tc.t
+        ts, dts = _planned_steps(tc, chunk)
+        if not ts:
+            return True
+        stats = eq.solve_tm_time_steps(heat, ts, dts, tol=self.tol,
+                                       maxiter=self.maxiter)
+        conv = (stats[:, 5] > 0.5).astype(int)
+        n_ok = int(conv.cumprod().sum())
+        for k in range(n_ok):
+            current_time = "%.3f" % (ts[k] / tc.time_conversion)
+            self.screen.print_row([
+                s0 + 1 + k, dts[k] / tc.time_conversion,
+                f"{current_time} / {tc.t_final / tc.time_conversion}",
+                int(stats[k, 2]), float(stats[k, 3]),
+            ])
+        if n_ok == len(ts):
+            for output in self.outputs:
+                output.skip_calls(n_ok - 1)
+            self._save_derived_and_outputs(ts[-1])
+            return True
+        for output in self.outputs:
+            output.skip_calls(n_ok)
+        tc.step_counter = s0 + n_ok
+        tc.t = ts[n_ok - 1] if n_ok else t0
+        return False
+
+    def run(self):
+        eq = self.eq_mom
+        heat = self.eq_heat
+        tc = self.t_control
+
+        for output in self.outputs:
+            output.initialize()
+
+        eq.set_T0(heat.get_T_elems())
+
+        eq.bc.update_dirichlet(tc.t)
+        eq.bc.update_neumann(tc.t)
+
+        if self.compute_elastic_response:
+            eq.solve_elastic_response()
+            eps_tot = eq.compute_total_strain()
+            stress = eq.compute_elastic_stress(eps_tot)
+        else:
+            eq.compute_total_strain()
+            stress = eq.sig_v
+
+        T_elems = heat.get_T_elems()
+        eq.set_T(T_elems)
+        eq.set_T0(T_elems)
+
+        eq.compute_eps_ne_rate(stress, tc.t)
+        eq.update_eps_ne_rate_old()
+
+        self._save_derived_and_outputs(0.0)
+
+        while tc.keep_looping():
+            chunk = self._plan_chunk_size()
+            fused_failed = False
+            if chunk > 1:
+                if self._run_fused_chunk(chunk):
+                    continue
+                fused_failed = True
+            tc.advance_time()
+            t, dt = tc.t, tc.dt
+
+            eq.bc.update_dirichlet(t)
+            eq.bc.update_neumann(t)
+
+            # dt-halving retry around the coupled step: the hardening
+            # linearization can overshoot under a large thermal-stress
+            # increment, and the cure is a smaller dt, as in Simulator_M.
+            # The backups share the live tensors: a step replaces them and
+            # never writes into them.
+            stress_backup, eps_backup, u_backup = eq.sig_v, eq.eps_tot_v, eq.u
+            T_backup, T_old_backup = heat.T, heat.T_old
+            eq.save_internal_state()
+
+            def restore():
+                eq.sig_v, eq.eps_tot_v, eq.u = (stress_backup, eps_backup,
+                                                u_backup)
+                eq._last_sv_k = stress_backup
+                eq.restore_internal_state()
+                heat.T, heat.T_old = T_backup, T_old_backup
+
+            dt_current = dt
+            dt_cut = 0
+            step_converged = False
+            ite, error = 0, 2 * self.tol
+            while not step_converged and dt_cut <= self.max_dt_cuts:
+                eq._fp32_disable = dt_cut > 0 or fused_failed
+                heat.solve(t, dt_current)
+                eq.set_T(heat.get_T_elems())
+                ite, error = eq.solve_time_step(t, dt_current, tol=self.tol,
+                                                maxiter=self.maxiter)
+                if not np.isnan(error) and error <= self.tol:
+                    step_converged = True
+                else:
+                    dt_cut += 1
+                    restore()
+                    if dt_cut <= self.max_dt_cuts:
+                        print(f"[SOLVER] TM step {tc.step_counter}: "
+                              f"{'NaN' if np.isnan(error) else 'no convergence'}"
+                              f" after {ite} iters - halving dt, "
+                              f"retry {dt_cut}/{self.max_dt_cuts}",
+                              file=sys.stderr)
+                        dt_current = dt_current / 2
+            eq._fp32_disable = False
+
+            if step_converged:
+                eq.commit_time_step(dt_current, eq.sig_v, eq._last_sv_k)
+
+            self._save_derived_and_outputs(t)
+            current_time = "%.3f" % (t / tc.time_conversion)
+            self.screen.print_row([
+                tc.step_counter, tc.dt / tc.time_conversion,
+                f"{current_time} / {tc.t_final / tc.time_conversion}",
+                ite, error,
+            ])
+
+        self.screen.close()
+        for output in self.outputs:
+            output.save_mesh()
+
+    _save_derived_and_outputs = Simulator_M._save_derived_and_outputs

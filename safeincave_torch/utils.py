@@ -119,6 +119,23 @@ def von_mises_voigt(s: torch.Tensor) -> torch.Tensor:
 Fn = Callable[[float, float, float], float]
 
 
+def padded_bins(keys: np.ndarray, n_bins: int) -> np.ndarray:
+    """(n_bins, K) int64 table of the positions of each bin's entries: row b
+    lists, ascending, the k with ``keys[k] == b``; K is the largest count
+    (at least 1) and short rows are padded with ``len(keys)``.  Summing a
+    gather through this table is deterministic on CUDA, where ``index_add_``
+    is atomic."""
+    keys = np.asarray(keys, dtype=np.int64).reshape(-1)
+    order = np.argsort(keys, kind="stable")
+    counts = np.bincount(keys, minlength=n_bins)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    rank = np.arange(order.size) - starts[keys[order]]
+    K = int(counts.max()) if counts.size else 0
+    table = np.full((n_bins, max(K, 1)), keys.size, dtype=np.int64)
+    table[keys[order], rank] = order
+    return table
+
+
 def _sample(xyz: np.ndarray, fun: Fn) -> np.ndarray:
     """``fun(x, y, z)`` at each row of ``xyz``, vectorized when ``fun``
     takes arrays, point by point otherwise; (n,) float64 on the host."""

@@ -22,10 +22,24 @@ tol 1e-8.
   ``torch_port_configs.box_case`` over ``box_mesh(600, 600, 800, nx=17)``
   written with ``write_msh``.
 
-These two hold, per stage (``eq_`` and ``op_`` prefixes), the step table
-(fixed-point iterations, error, converged) and the final fields the stage
-saves (u and p_elems; q_elems too in operation).  The machine that runs ``chip_smoke.py`` on the GPU has no JAX, so
-it reads these files.
+- ``tests/golden/torch_port_tm_cavern600.npz``: bench.py's
+  thermo-mechanical configuration (``torch_port_configs.wire_tm``, Robin
+  wall on "Cavern") on the band-ordered cavern_proxy_600 mesh through
+  ``Simulator_TM``, 24 steps at 1 h with ``SaveFields(save_every=6)`` of u
+  and of T: final ``u``, ``sig_v``, ``T`` and the step table ``rows``
+  (fixed-point iterations, error);
+- ``tests/golden/torch_port_t_cavern600.npz``: 6 steps of ``Simulator_T`` on
+  the same heat equation: final ``T``;
+- ``tests/golden/torch_port_tm_box17.npz``: the same configuration on the
+  natural-order box17 (Robin wall on BOTTOM) with ``enable_dia_matvec()``
+  and the fp32 phase forced on, 8 steps of bare ``solve_tm_time_steps``
+  after ``tm_init``: ``u``, ``sig_v``, ``T`` and the (8, 6) ``rows``.
+
+The two mechanics simulator goldens hold, per stage (``eq_`` and ``op_``
+prefixes), the step table (fixed-point iterations, error, converged) and
+the final fields the stage saves (u and p_elems; q_elems too in operation).
+The machine that runs ``chip_smoke.py`` on the GPU has no JAX, so it reads
+these files.
 
 Run from the repository root (one or more names, default all):
 
@@ -120,9 +134,55 @@ def json_box17(tmp):
     return _stages(records)
 
 
+def _save_fields(eq, folder, field):
+    out = sc.SaveFields(eq, save_every=6)
+    out.set_output_folder(folder)
+    out.add_output_field(field, field)
+    return out
+
+
+def tm_cavern600(tmp):
+    """Simulator_TM on cavern600, as chip_smoke.py's tm phase runs it."""
+    eq, heat = cfg.wire_tm(sc, cfg.cavern600_grid(sc), "Cavern")
+    outs = [_save_fields(eq, os.path.join(tmp, "u"), "u"),
+            _save_fields(heat, os.path.join(tmp, "T"), "T")]
+    _, rows = cfg.run_tm_sim(sc, eq, heat, outs)
+    return dict(u=np.asarray(eq.u), sig_v=np.asarray(eq.sig_v),
+                T=np.asarray(heat.T), rows=rows)
+
+
+def t_cavern600(tmp):
+    """Simulator_T on the same heat equation, 6 steps."""
+    _, heat = cfg.wire_tm(sc, cfg.cavern600_grid(sc), "Cavern")
+    tc = sc.TimeController(dt=1.0, initial_time=0.0, final_time=6.0,
+                           time_unit="hour")
+    sc.Simulator_T(heat, tc, [_save_fields(heat, os.path.join(tmp, "T"),
+                                           "T")]).run()
+    return dict(T=np.asarray(heat.T))
+
+
+TM_BOX_STEPS = 8
+
+
+def tm_box17(tmp):
+    """Bare solve_tm_time_steps on box17, as chip_smoke.py's tm_box phase
+    runs it."""
+    eq, heat = cfg.wire_tm(sc, cfg.box17_grid(sc), "BOTTOM", fp32_phase=True)
+    eq.enable_dia_matvec()
+    cfg.tm_init(eq, heat)
+    dt = cfg.HOUR
+    rows = eq.solve_tm_time_steps(
+        heat, [(k + 1) * dt for k in range(TM_BOX_STEPS)],
+        [dt] * TM_BOX_STEPS, tol=1e-6, maxiter=20)
+    return dict(u=np.asarray(eq.u), sig_v=np.asarray(eq.sig_v),
+                T=np.asarray(heat.T), rows=np.asarray(rows))
+
+
 CASES = {"cavern600": lambda tmp: write_steps(_cavern600),
          "box17": lambda tmp: write_steps(_box17),
-         "sim_cavern600": sim_cavern600, "json_box17": json_box17}
+         "sim_cavern600": sim_cavern600, "json_box17": json_box17,
+         "tm_cavern600": tm_cavern600, "t_cavern600": t_cavern600,
+         "tm_box17": tm_box17}
 
 
 def write(name):

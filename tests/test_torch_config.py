@@ -4,9 +4,9 @@
 two-stage case (``torch_port_configs.box_case`` on a 2x2x2 box written with
 ``write_msh``); both stages' outputs, read back with the JAX package's
 ``postproc``, have the JAX ``Simulator_GUI``'s times and fields within 1e-9
-of max|ref|.  ``sim_cli`` runs the same file; the element kinds that are not
-ported raise ``NotImplementedError``; without a device argument and without
-CUDA both entry points raise.
+of max|ref|.  ``sim_cli`` runs the same file; every element kind of the schema
+builds its element and a kind outside the schema raises ``ValueError``;
+without a device argument and without CUDA both entry points raise.
 """
 import os
 
@@ -72,13 +72,24 @@ def test_sim_cli_runs_on_cpu(tmp_path):
                                   "MohrCoulombViscoplastic",
                                   "MatsuokaNakaiViscoplastic"])
 def test_unported_kinds_raise(tmp_path, kind):
+    """No kind of the JAX package's schema is left unported: each of the
+    four that used to raise ``NotImplementedError`` builds its element on
+    the requested device (tests/test_torch_materials_extra.py runs them
+    against the JAX driver).  A kind outside the schema still raises, as in
+    the JAX package."""
+    import safeincave_torch.config as config
+    assert not hasattr(config, "_UNPORTED")
     case = _case(tmp_path, "out")
-    case["constitutive_model"]["nonelastic"] = {
-        "x": {"type": kind, "active": True, "equilibrium": True,
-              "parameters": {}}}
     sim = st.Simulator_GUI(case, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sim.run_equilibrium()
+    elem = sim._build_nonelastic("x", {"type": kind,
+                                       "parameters": cfg.JSON_KINDS[kind]})
+    assert type(elem).__name__ == kind and elem.name == "x"
+    assert elem.device.type == "cpu" and elem.n_elems == sim.grid.n_elems
+    case["constitutive_model"]["nonelastic"] = {
+        "x": {"type": "Not" + kind, "active": True, "equilibrium": True,
+              "parameters": {}}}
+    with pytest.raises(ValueError, match="not supported"):
+        st.Simulator_GUI(case, device="cpu").run_equilibrium()
 
 
 def test_no_device_without_cuda_raises(tmp_path, monkeypatch):

@@ -40,6 +40,16 @@ def _entry_points():
         "Viscoelastic": lambda: st.Viscoelastic(one, one, 0.3 * one),
         "DislocationCreep": lambda: st.DislocationCreep(one, one, one),
         "ViscoplasticDesai": lambda: st.ViscoplasticDesai(*[one] * 11),
+        "Thermoelastic": lambda: st.Thermoelastic(one),
+        "PressureSolutionCreep": lambda: st.PressureSolutionCreep(one, one,
+                                                                  one),
+        "MunsonDawsonCreep": lambda: st.MunsonDawsonCreep(*[one] * 10),
+        "MohrCoulombViscoplastic": lambda: st.MohrCoulombViscoplastic(
+            *[one] * 6),
+        "MatsuokaNakaiViscoplastic": lambda: st.MatsuokaNakaiViscoplastic(
+            *[one] * 6),
+        "HeatDiffusion": lambda: st.HeatDiffusion(
+            st.GridBox(nx=1, ny=1, nz=1)),
         "SolverSettings.fp32_enabled": lambda: st.SolverSettings(
             fp32_phase="auto").fp32_enabled(),
     }

@@ -8,7 +8,8 @@ points run on the card unless given ``device="cpu"``, as the tests do); the
 JAX package takes no such argument.  The material and loads are the cavern
 benchmark's (bench.py:build): Spring + Viscoelastic + DislocationCreep +
 ViscoplasticDesai, roller supports on the three lower faces and a 24 h
-sinusoidal pressure on the loaded faces.
+sinusoidal pressure on the loaded faces.  The thermo-mechanical set-ups
+(``wire_tm``) take bench.py's second configuration (bench_tm).
 """
 import numpy as np
 
@@ -59,8 +60,15 @@ def wire_bench(pkg, grid, precond="2level", fp32_phase=False, device=None,
     eq.set_T0(298.0 * np.ones(n))
     eq.set_T(298.0 * np.ones(n))
     eq.build_body_force([0.0, 0.0, 0.0])
+    bench_bcs(pkg, eq)
+    return eq
+
+
+def bench_bcs(pkg, eq):
+    """The cavern benchmark's supports and 24 h sinusoidal pressure on
+    ``eq``'s grid."""
     momBC = pkg.MomentumBC
-    names = grid.get_boundary_names()
+    names = eq.grid.get_boundary_names()
     bc = momBC.BcHandler(eq)
     tv = [0.0, 1e12]
     for nm, comp in FIXED:
@@ -74,7 +82,6 @@ def wire_bench(pkg, grid, precond="2level", fp32_phase=False, device=None,
             bc.add_boundary_condition(momBC.NeumannBC(
                 nm, 2, 0.0, 0.0, list(p_sched), list(t_sched), g=0.0))
     eq.set_boundary_conditions(bc)
-    return eq
 
 
 def cavern600_grid(pkg):
@@ -87,6 +94,171 @@ def box17_grid(pkg):
     """bench.py's box configuration (its fallback when no cavern mesh is
     found), in natural order: 5,832 nodes, 29,478 tets."""
     return pkg.GridBox(Lx=600.0, Ly=600.0, Lz=800.0, nx=17, ny=17, nz=17)
+
+
+def tm_material(pkg, n, device=None):
+    """bench.py's thermo-mechanical material (bench_tm): Spring +
+    Kelvin-Voigt + dislocation creep + pressure-solution creep +
+    Thermoelastic, cp 850 J/kg/K, k 7 W/m/K."""
+    one = np.ones(n)
+    dev = on(pkg, device)
+    mat = pkg.Material(n, **dev)
+    mat.set_density(2200.0 * one)
+    mat.add_to_elastic(pkg.Spring(102e9 * one, 0.3 * one))
+    mat.add_to_non_elastic(pkg.Viscoelastic(105e11 * one, 10e9 * one,
+                                            0.32 * one, **dev))
+    mat.add_to_non_elastic(pkg.DislocationCreep(
+        1.9e-20 * one, 51600 * one, 3.0 * one, name="ds_creep", **dev))
+    mat.add_to_non_elastic(pkg.PressureSolutionCreep(
+        1e-22 * one, 1e-2 * one, 51600 * one, name="ps_creep", **dev))
+    mat.add_to_thermoelastic(pkg.Thermoelastic(44e-6 * one, **dev))
+    mat.set_specific_heat_capacity(850.0 * one)
+    mat.set_thermal_conductivity(7.0 * one)
+    return mat
+
+
+def wire_tm(pkg, grid, wall, precond="2level", fp32_phase=False,
+            device=None, heat_precision="mixed", **eq_kw):
+    """bench.py's thermo-mechanical configuration on ``grid``: the
+    benchmark's mechanical loads, :func:`tm_material`, initial T 298 K, a
+    Dirichlet ramp 298 -> 293 K over 12 h on TOP and a Robin wall (h = 5
+    W/m2/K, 298 -> 283 K over 24 h) on the boundary ``wall``.  Returns
+    (momentum equation, heat equation)."""
+    dev = on(pkg, device)
+    eq = pkg.LinearMomentum(grid, theta=0.5, **dev, **eq_kw)
+    eq.set_solver(pkg.SolverSettings(precond=precond, fp32_phase=fp32_phase,
+                                     **SETTINGS))
+    mat = tm_material(pkg, eq.n_elems, device)
+    eq.set_material(mat)
+    eq.build_body_force([0.0, 0.0, 0.0])
+    bench_bcs(pkg, eq)
+    heat = pkg.HeatDiffusion(grid, **dev)
+    heat.set_solver(pkg.SolverSettings(method="cg", rtol=1e-12, max_it=400,
+                                       precision=heat_precision))
+    heat.set_material(mat)
+    heat.set_initial_T(298.0 * np.ones(grid.n_nodes))
+    heatBC = pkg.HeatBC
+    bc_h = heatBC.BcHandler(heat)
+    bc_h.add_boundary_condition(heatBC.DirichletBC(
+        "TOP", [298., 293., 293.], [0.0, 12 * HOUR, 1e12]))
+    bc_h.add_boundary_condition(heatBC.RobinBC(
+        wall, [298., 283., 283.], 5.0, [0.0, 24 * HOUR, 1e12]))
+    heat.set_boundary_conditions(bc_h)
+    return eq, heat
+
+
+def tm_cube(pkg, device=None, extra=None, nx=3):
+    """tests/golden_configs.py's ``build_tm_cube`` for either package: a
+    cube with a heated TOP (330 K) and a Robin BOTTOM, Spring + Kelvin-Voigt
+    + dislocation creep + Thermoelastic, 5 MPa on TOP.  ``extra(pkg, n,
+    dev)`` returns one more inelastic element.  Returns (momentum, heat)."""
+    dev = on(pkg, device)
+    grid = pkg.GridBox(nx=nx, ny=nx, nz=nx)
+    n = grid.n_elems
+    one = np.ones(n)
+    tv = [0.0, 1e9]
+    heat = pkg.HeatDiffusion(grid, **dev)
+    heat.set_solver(pkg.SolverSettings(method="cg", rtol=1e-12, max_it=500))
+    mat = pkg.Material(n, **dev)
+    mat.set_density(2200.0 * one)
+    mat.add_to_elastic(pkg.Spring(102e9 * one, 0.3 * one))
+    mat.add_to_non_elastic(pkg.Viscoelastic(105e11 * one, 10e9 * one,
+                                            0.32 * one, **dev))
+    mat.add_to_non_elastic(pkg.DislocationCreep(1.9e-20 * one, 51600 * one,
+                                                3.0 * one, **dev))
+    if extra is not None:
+        mat.add_to_non_elastic(extra(pkg, n, dev))
+    mat.set_specific_heat_capacity(850.0 * one)
+    mat.set_thermal_conductivity(5.0 * one)
+    mat.set_thermal_expansion(4.4e-5 * one)
+    mat.add_to_thermoelastic(pkg.Thermoelastic(4.4e-5 * one, **dev))
+    heat.set_material(mat)
+    heat.set_initial_T(298.0 * np.ones(grid.n_nodes))
+    heatBC = pkg.HeatBC
+    bc_h = heatBC.BcHandler(heat)
+    bc_h.add_boundary_condition(heatBC.DirichletBC("TOP", [330., 330.], tv))
+    bc_h.add_boundary_condition(heatBC.RobinBC("BOTTOM", [298., 298.], 25.0,
+                                               tv))
+    heat.set_boundary_conditions(bc_h)
+
+    eq = pkg.LinearMomentum(grid, theta=0.5, **dev)
+    eq.set_solver(pkg.SolverSettings(method="bicgstab", rtol=1e-12,
+                                     max_it=500))
+    eq.set_material(mat)
+    eq.build_body_force([0.0, 0.0, 0.0])
+    momBC = pkg.MomentumBC
+    bc_m = momBC.BcHandler(eq)
+    for nm, comp in (("WEST", 0), ("SOUTH", 1), ("BOTTOM", 2)):
+        bc_m.add_boundary_condition(momBC.DirichletBC(nm, comp, [0., 0.],
+                                                      tv))
+    bc_m.add_boundary_condition(momBC.NeumannBC("TOP", 2, 0.0, 0.0,
+                                                [5 * MPa, 5 * MPa], tv,
+                                                g=0.0))
+    eq.set_boundary_conditions(bc_m)
+    return eq, heat
+
+
+def tm_start(eq, heat):
+    """The start of ``Simulator_TM.run`` (and of tests/golden_configs.py's
+    ``run_tm``): T0 set around the elastic response, then the initial
+    rates."""
+    eq.set_T0(heat.get_T_elems())
+    eq.bc.update_dirichlet(0.0)
+    eq.bc.update_neumann(0.0)
+    eq.solve_elastic_response()
+    eps = eq.compute_total_strain()
+    eq.compute_elastic_stress(eps)
+    eq.set_T(heat.get_T_elems())
+    eq.set_T0(heat.get_T_elems())
+    eq.compute_eps_ne_rate(eq.sig_v, 0.0)
+    eq.update_eps_ne_rate_old()
+
+
+def run_tm_steps(eq, heat, n_steps=3, dt=HOUR):
+    """tests/golden_configs.py's ``run_tm``: the per-step coupled loop with
+    the reference-style commit calls; returns the rows (iterations,
+    error)."""
+    tm_start(eq, heat)
+    rows = []
+    for k in range(n_steps):
+        t = (k + 1) * dt
+        heat.solve(t, dt)
+        eq.set_T(heat.get_T_elems())
+        rows.append(eq.solve_time_step(t, dt, tol=1e-6, maxiter=20))
+        eq.update_internal_variables()
+        eq.update_eps_ne_rate_old()
+        eq.update_eps_ne_old(eq.sig_v, eq._last_sv_k, dt)
+    return np.asarray(rows, dtype=float)
+
+
+def tm_init(eq, heat):
+    """bench.py's initial state of the coupled run: T0 = T = the heat
+    field on the elements, elastic response, initial creep rates."""
+    T_el = heat.get_T_elems()
+    eq.set_T0(T_el)
+    eq.set_T(T_el)
+    elastic_init(eq)
+
+
+def run_tm_sim(pkg, eq, heat, outputs, hours=24.0, **sim_kw):
+    """``pkg.Simulator_TM`` over ``hours`` at dt = 1 h; returns (time
+    controller, rows of [fixed-point iterations, error] read from the
+    driver's step table)."""
+    tc = pkg.TimeController(dt=1.0, initial_time=0.0, final_time=hours,
+                            time_unit="hour")
+    sim = pkg.Simulator_TM(eq, heat, tc, outputs, **sim_kw)
+    sim.run()
+    return tc, screen_rows(sim.screen.lines)
+
+
+def screen_rows(lines):
+    """[iterations, error] of each step row of a driver's transcript."""
+    rows = []
+    for line in lines:
+        cells = [c.strip() for c in line.split("|")]
+        if len(cells) == 5 and cells[0].isdigit():
+            rows.append([float(cells[3]), float(cells[4])])
+    return np.asarray(rows, dtype=float).reshape(-1, 2)
 
 
 def cavern_example(pkg, device=None, precond="2level", fp32_phase=False):
@@ -261,6 +433,25 @@ def box_case(grid_dir, out_dir, hour=HOUR):
                     "values": [8e6, 10e6, 8e6]},
         },
     }
+
+
+# parameters of one JSON block of each element kind beyond the main path's
+JSON_KINDS = {
+    "PressureSolutionCreep": {"A": 1.29e-15, "d": 5e-3, "Q": 51600.0,
+                              "T": 298.0},
+    "MunsonDawsonCreep": {"A": 1.0e-22, "Q": 51600.0, "n": 3.0, "K0": 1e-6,
+                          "c": 0.0092, "m": 3.0, "alpha_w": -10.0,
+                          "beta_w": -0.7, "delta": 0.58, "mu": 12e9,
+                          "T": 298.0},
+    "MohrCoulombViscoplastic": {"mu_1": 1e-12, "N_1": 1.0, "cohesion": 1.0,
+                                "friction_angle": np.radians(30.0),
+                                "dilation_angle": np.radians(10.0),
+                                "sigma_t": 5.0},
+    "MatsuokaNakaiViscoplastic": {"mu_1": 1e-12, "N_1": 1.0, "cohesion": 1.0,
+                                  "friction_angle": np.radians(30.0),
+                                  "dilation_angle": np.radians(10.0),
+                                  "sigma_t": 5.0},
+}
 
 
 def elastic_init(eq):
