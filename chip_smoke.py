@@ -6,13 +6,17 @@ Phases, one line each; any failure raises and the exit code is non-zero:
 
 1. device  - the card (nvidia-smi name, power limit) and torch/CUDA versions.
 2. build   - nvcc builds the band and block-DIA kernels from
-             safeincave_torch/csrc/, one process each, in parallel.
+             safeincave_torch/csrc/, one process each, in parallel; the host
+             compiler builds native/mesh_preprocess.cpp (Morton / RCB
+             ordering), which must load: the numpy versions are for
+             machines without a compiler.
 3. kernel  - each kernel against its plain PyTorch twin on a random
              energy-symmetric tangent, at every shape it is measured at:
-             the band matvec at cavern_proxy_600 (the main path) and at the
-             band-ordered GridBox nx=44 (bench.py's scale size), 2e-5
-             max|ref|; the f32 DIA matvec at the box path's nx=17 and at
-             nx=44, 1e-5 max|ref|, and the f64 DIA matvec at nx=17, 1e-12.
+             the band matvec at cavern_proxy_600 (the main path), at the
+             band-ordered GridBox nx=44 (bench.py's scale size) and at the
+             band-ordered 38k-tet cavern_interlayer_1200 mesh (the yearly
+             path), 2e-5 max|ref|; the f32 DIA matvec at the box path's nx=17
+             and at nx=44, 1e-5 max|ref|, and the f64 DIA matvec at nx=17, 1e-12.
              Bitwise repeatability and energy symmetry.  Per kernel and
              shape: ``ms`` (the wrapper call, CUDA events over 200 calls),
              ``device_ms`` (the kernels' own time per call, torch.profiler,
@@ -106,6 +110,53 @@ Phases, one line each; any failure raises and the exit code is non-zero:
              1e-6 max|ref| of tests/golden/torch_port_tm_box17.npz.  Prints
              the same per-step numbers and the sweeps the gate accepted.
 
+12. lag    - phase 4's cavern600 main path (bench material, band kernel,
+             dense preconditioner, sweep off) three ways, one after the
+             other in this process, each a 3-step warm-up chunk, then two
+             timed 5-step chunks with the ways in turns: default, ``lag_tangent=True``,
+             ``adaptive_rtol=True``.  Per way: ms/step, fixed-point
+             iterations, tangent builds, Krylov iterations and band
+             launches per step, rollbacks.  Every step converged; the
+             lagged and adaptive u and sig_v within 2e-7 max|ref| of the
+             default's; each flagged way within 1e-6 max|ref| of its JAX
+             golden (tests/golden/torch_port_{lag,adaptive}_cavern600.npz),
+             fixed-point counts within +-1 of it; the default way's 3-step
+             state against torch_port_cavern600.npz as phase 5 holds it.
+13. yearly - examples/mechanics/nobian_yearly ``--full`` on the port
+             (``torch_port_configs.yearly_*``): the band-ordered 38k-tet
+             cavern_interlayer_1200 mesh (7,669 nodes), the region-masked
+             material (Spring, Kelvin-Voigt, dislocation creep in the salt,
+             Mohr-Coulomb in the interlayers), precond "auto", sweep off;
+             the equilibrium stage (30 days at 5 days), then the first 4
+             days of data/operational_year.csv at 6 h through
+             ``Simulator_M`` in fused chunks with u and q_elems saved every
+             8 steps, StepMetrics and one checkpoint at step 16.  The band
+             kernel and the dense preconditioner must be selected; prints
+             the dense inverse's bytes and build time.  Every step
+             converged, fields within 1e-6 max|ref| of
+             tests/golden/torch_port_yearly_1200.npz, fixed-point counts
+             within +-1, the saves and the checkpoint where expected.
+14. order  - cavern600 under four node orders with the bench material:
+             as the JSON driver loads it (no ``reorder``) on the cumsum
+             operator, the same with ``enable_blockell_matvec()``,
+             ``reorder="morton"`` with block-ELL, and band order with the
+             band kernel.  Per way: ms/step in two 5-step chunks after a
+             3-step one, the ways in turns, fixed-point and Krylov
+             iterations per step, K and
+             the f64 block tensor's bytes; u and sig_v, brought back to the
+             file's node and element order, within 1e-8 max|ref| of the
+             first way's.
+15. point  - calibrate_creep.py's fit (300 Adam steps through the
+             closed-form model) and one ``TriaxialSimulator.run_compression``
+             of calibrate_triaxial.py's twin (81 times, two confinements) on
+             the card: ms per ``calibrate`` step, fitted parameters within
+             1e-6 and the loss history within 1e-6 relative of
+             tests/golden/torch_port_point.npz, the twin's histories within
+             1e-9 max|ref|.
+
+Phase 9 runs its case twice, with the f32 sweep as "auto" selects it and
+with ``fp32_phase=False``, and prints both lines.
+
 The last lines are the kernel JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  There is no CPU fallback: without a CUDA
 device the script exits non-zero before printing any result.
@@ -117,9 +168,9 @@ runs phase 3 alone on the ``safeincave_torch`` package of another checkout
 the kernels in turns within one call; it prints the kernel JSON and the
 card, and no ``ok`` line.
 
-    python3 chip_smoke.py --phase tm|tm_box
+    python3 chip_smoke.py --phase tm|tm_box|lag|yearly|order|point
 
-builds the kernels and runs phase 10 or 11 alone (no ``ok`` line).
+builds the kernels and runs that phase alone (no ``ok`` line).
 """
 import argparse
 import contextlib
@@ -430,9 +481,11 @@ def kernel_phase(st, cfg, dev):
         return [torch.as_tensor(rng.normal(size=(N, 3)), dtype=dtype,
                                 device=dev) for _ in range(2)]
 
-    for shape, grid in (("cavern600", cfg.cavern600_grid(st)),
-                        ("box nx=44 band order",
-                         reordered_grid(box(44), "band")[0])):
+    shapes = [("cavern600", cfg.cavern600_grid(st)),
+              ("box nx=44 band order", reordered_grid(box(44), "band")[0])]
+    if hasattr(cfg, "yearly_grid"):     # absent from an older --tree
+        shapes.append(("cavern_interlayer_1200", cfg.yearly_grid(st)))
+    for shape, grid in shapes:
         E, N = grid.n_elems, grid.n_nodes
         kern = MomentumKernel(grid, dev)
         band = BandMatvec(kern)
@@ -514,6 +567,15 @@ def run_chunks(eq, t_first, sizes):
         out.append((rows, time.perf_counter() - t0))
         t += n * HOUR
     return out
+
+
+def chunks_in_turns(eqs, chunks):
+    """Append two timed 5-step chunks per equation to ``chunks[way]``, the
+    ways in turns.  Every way has run its 3-step warm-up chunk by now, so
+    none pays the process's first use of an operation for the others."""
+    for t_first in (4 * HOUR, 9 * HOUR):
+        for way, eq in eqs.items():
+            chunks[way] += run_chunks(eq, t_first, (5,))
 
 
 def parity(tag, golden, u_elastic, rows3, u3, sig3):
@@ -1004,10 +1066,12 @@ def tm_box_phase(st, cfg):
     return launches, launches / n_steps
 
 
-def json_child(case_path, result_path):
+def json_child(case_path, result_path, sweep="auto"):
     """``--json-child``: run sim_cli on the case with the recording
     simulator (and MemorySink without h5py); write the stage records to
-    ``result_path`` and print the DIA launch count on the last line."""
+    ``result_path`` and print the DIA launch count on the last line.
+    ``sweep="off"`` makes the driver's solver settings with
+    ``fp32_phase=False``."""
     sys.path.insert(0, ROOT)
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import safeincave_torch as st
@@ -1018,6 +1082,9 @@ def json_child(case_path, result_path):
     config.Simulator_M = cfg.recording_simulator(st, records)
     if not have_h5py():
         config.SaveFields = MemorySink
+    if sweep == "off":
+        config.SolverSettings = lambda **kw: st.SolverSettings(
+            **{**kw, "fp32_phase": False})
     print(f"sink: {'SaveFields (h5py)' if have_h5py() else 'MemorySink'}",
           flush=True)
     sim = sim_cli.main(["--json", case_path])
@@ -1042,48 +1109,367 @@ def json_phase(st, cfg, tmp):
     case = os.path.join(tmp, "box17.json")
     st.Utils.save_json(cfg.box_case(grid_dir, os.path.join(tmp, "json_out")),
                        case)
-    result = os.path.join(tmp, "json_result.npz")
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                           "--json-child", case, result],
-                          capture_output=True, text=True, timeout=900)
-    secs = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise AssertionError(f"json: sim_cli failed:\n{proc.stdout[-3000:]}"
-                             f"\n{proc.stderr[-3000:]}")
-    lines = proc.stdout.strip().splitlines()
-    launches = json.loads(lines[-1])["dia_launches"]
-    sink = next(ln for ln in lines if ln.startswith("sink: "))[6:]
-    if launches <= 0:
-        raise AssertionError("json: the DIA kernel never launched")
-    got = np.load(result)
-    rows = np.concatenate([got["eq_rows"], got["op_rows"]])
-    if not (rows[:, 2] == 1).all():
-        raise AssertionError(f"json: non-converged steps {rows.tolist()}")
-    errs = {f: within(f"json operation {f}", got[f"op_{f}"],
-                      golden[f"op_{f}"], 1e-6) for f in ("u", "p_elems")}
     ref_it = np.concatenate([golden["eq_rows"], golden["op_rows"]])[:, 0]
-    say("json", f"sim_cli --json on box17 (write_msh -> read_msh, E=29478, "
-                f"N=5832) in a child process: exit 0 in {secs:.1f} s "
-                f"(process start, build load and both stages); "
-                f"{len(rows)} steps converged, fixed-point it "
-                f"{rows[:, 0].astype(int).tolist()} vs golden "
-                f"{ref_it.astype(int).tolist()}; "
-                f"DIA launches {launches}, {launches / len(rows):.1f} per "
-                f"step; operation u {errs['u']:.2e}, p_elems "
-                f"{errs['p_elems']:.2e} vs golden (<=1e-6 max|ref|); sink "
-                f"{sink}")
+    first = None
+    for sweep in ("auto", "off"):
+        result = os.path.join(tmp, f"json_result_{sweep}.npz")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--json-child", case, result, sweep],
+                              capture_output=True, text=True, timeout=900)
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"json: sim_cli failed:\n"
+                                 f"{proc.stdout[-3000:]}\n"
+                                 f"{proc.stderr[-3000:]}")
+        lines = proc.stdout.strip().splitlines()
+        launches = json.loads(lines[-1])["dia_launches"]
+        sink = next(ln for ln in lines if ln.startswith("sink: "))[6:]
+        if launches <= 0:
+            raise AssertionError("json: the DIA kernel never launched")
+        got = np.load(result)
+        rows = np.concatenate([got["eq_rows"], got["op_rows"]])
+        if not (rows[:, 2] == 1).all():
+            raise AssertionError(f"json: non-converged steps {rows.tolist()}")
+        errs = {f: within(f"json operation {f}", got[f"op_{f}"],
+                          golden[f"op_{f}"], 1e-6) for f in ("u", "p_elems")}
+        say("json", f"sim_cli --json on box17 (write_msh -> read_msh, "
+                    f"E=29478, N=5832) in a child process, f32 sweep "
+                    f"{sweep}: exit 0 in {secs:.1f} s (process start, build "
+                    f"load and both stages); {len(rows)} steps converged, "
+                    f"fixed-point it {rows[:, 0].astype(int).tolist()} "
+                    f"({rows[:, 0].mean():.2f}/step) vs golden "
+                    f"{ref_it.astype(int).tolist()}; DIA launches "
+                    f"{launches}, {launches / len(rows):.1f} per step; "
+                    f"operation u {errs['u']:.2e}, p_elems "
+                    f"{errs['p_elems']:.2e} vs golden (<=1e-6 max|ref|); "
+                    f"sink {sink}")
+        if first is None:
+            first = (launches, launches / len(rows))
+    return first
+
+
     return launches, launches / len(rows)
+
+
+def dense_build_log(st):
+    """Make every dense-preconditioner build of the port append (seconds,
+    bytes of the inverse) to the returned list."""
+    import torch
+    mom = st.fem.momentum
+    real, log = mom._dense_inverse_precond, []
+
+    def timed(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inv = real(*args)
+        torch.cuda.synchronize()
+        log.append((time.perf_counter() - t0,
+                    inv.numel() * inv.element_size()))
+        return inv
+    mom._dense_inverse_precond = timed
+    return log
+
+
+def need_band(tag, eq):
+    """The equation's band operator; raises unless CUDA selected it and
+    the dense preconditioner."""
+    band = eq.kernel.band
+    if band is None:
+        raise AssertionError(f"{tag}: band kernel not auto-selected on CUDA")
+    P, _ = eq._get_precond()
+    if not (len(P) == 1 and P[0].shape[0] == 3 * eq.grid.n_nodes):
+        raise AssertionError(f"{tag}: precond 'auto' did not resolve to "
+                             f"dense")
+    return band
+
+
+def lag_phase(st, cfg):
+    """Phase 12; returns (band launches, launches per step) over the three
+    ways."""
+    grid = cfg.cavern600_grid(st)
+    ways = {"default": {}, "lag": {"lag_tangent": True},
+            "adaptive": {"adaptive_rtol": True}}
+    eqs, chunks, warm = {}, {w: [] for w in ways}, {}
+    for way, flags in ways.items():
+        eq = eqs[way] = cfg.wire_flagged(st, grid, flags, precond="auto")
+        cfg.elastic_init(eq)
+        need_band(f"lag {way}", eq).launches = 0
+        chunks[way] += run_chunks(eq, HOUR, (3,))
+        warm[way] = (eq.u.cpu().numpy(), eq.sig_v.cpu().numpy(),
+                     eq.kernel.band.launches, eq.tangent_builds_total,
+                     eq.rollbacks_total)
+    chunks_in_turns(eqs, chunks)
+    fields, launches_all, steps_all = {}, 0, 0
+    for way, eq in eqs.items():
+        band = eq.kernel.band
+        all_rows = np.concatenate([r for r, _ in chunks[way]])
+        rows = all_rows[3:]
+        n = len(rows)
+        if not (all_rows[:, 5] == 1).all():
+            raise AssertionError(f"lag {way}: non-converged steps "
+                                 f"{all_rows[:, [0, 1, 5]].tolist()}")
+        if band.launches <= 0:
+            raise AssertionError(f"lag {way}: band kernel never launched")
+        fields[way] = (eq.u.cpu().numpy(), eq.sig_v.cpu().numpy())
+        if way == "default":
+            g = np.load(GOLDEN.format("cavern600"))
+            e_u = within("lag default u", warm[way][0], g["u"], 1e-6)
+            e_s = within("lag default sig_v", warm[way][1], g["sig_v"], 1e-6)
+            vs = (f"3-step u {e_u:.2e}, sig_v {e_s:.2e} vs the cavern600 "
+                  f"golden (<=1e-6 max|ref|)")
+            if eq.tangent_builds_total != eq.fp_iterations_total:
+                raise AssertionError("lag default: an iteration skipped its "
+                                     "tangent build")
+        else:
+            g = np.load(GOLDEN.format(f"{way}_cavern600"))
+            d_it = int(np.abs(all_rows[:, 0] - g["rows"][:, 0]).max())
+            if d_it > 1:
+                raise AssertionError(
+                    f"lag {way}: fixed-point counts "
+                    f"{all_rows[:, 0].tolist()} vs golden "
+                    f"{g['rows'][:, 0].tolist()}")
+            e_d = [within(f"lag {way} vs default", a, b, 2e-7)
+                   for a, b in zip(fields[way], fields["default"])]
+            e_g = [within(f"lag {way} vs golden", a, g[k], 1e-6)
+                   for a, k in zip(fields[way], ("u", "sig_v"))]
+            vs = (f"u {e_d[0]:.2e}, sig_v {e_d[1]:.2e} vs the default way "
+                  f"(<=2e-7 max|ref|); u {e_g[0]:.2e}, sig_v {e_g[1]:.2e} vs "
+                  f"the JAX golden with the flag (<=1e-6), fixed-point "
+                  f"counts {'equal' if d_it == 0 else 'within 1'} "
+                  f"(sum {int(all_rows[:, 0].sum())} vs "
+                  f"{int(g['rows'][:, 0].sum())})")
+        ms = [1e3 * s / len(r) for r, s in chunks[way][1:]]
+        say("lag", f"{way}: {ms[0]:.1f} and {ms[1]:.1f} ms/step in the two "
+                   f"timed 5-step chunks (the ways in turns); per step "
+                   f"{rows[:, 0].mean():.2f} fixed-point it, "
+                   f"{(eq.tangent_builds_total - warm[way][3]) / n:.2f} "
+                   f"tangent builds, {rows[:, 2].mean():.1f} Krylov it, "
+                   f"{(band.launches - warm[way][2]) / n:.1f} band launches; "
+                   f"{eq.rollbacks_total - warm[way][4]} rollbacks "
+                   f"({eq.rollbacks_total} with the warm-up chunk); {vs}")
+        launches_all += band.launches
+        steps_all += len(all_rows)
+    return launches_all, launches_all / steps_all
+
+
+def yearly_phase(st, cfg, tmp):
+    """Phase 13; returns (band launches, launches per step)."""
+    import torch
+    golden = np.load(GOLDEN.format("yearly_1200"))
+    builds = dense_build_log(st)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    grid, eq = cfg.yearly_build(st, precond="auto", fp32_phase=False)
+    if grid.n_nodes != 7669 or grid.reorder_method != "band":
+        raise AssertionError(f"yearly: mesh {grid.n_nodes} nodes, order "
+                             f"{grid.reorder_method}")
+    if eq.kernel.band is None:
+        raise AssertionError("yearly: band kernel not auto-selected on CUDA")
+    band = eq.kernel.band
+    band.launches = 0
+    ck = os.path.join(tmp, "yearly_checkpoint.npz")
+    total_steps, notes = 0, []
+    for prefix, stage, every, extra in (
+            ("eq", "equilibrium", 1, {}),
+            ("op", "operation", cfg.YEARLY_SAVE_EVERY,
+             dict(checkpoint_every=cfg.YEARLY_CHECKPOINT_EVERY,
+                  checkpoint_path=ck))):
+        out = MemorySink(eq, save_every=every)
+        for f in cfg.YEARLY_FIELDS[stage]:
+            out.add_output_field(f, f)
+        metrics = st.StepMetrics(os.path.join(tmp, f"yearly_{stage}.jsonl"))
+        n0 = band.launches
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            tc = cfg.run_yearly_stage(st, eq, grid, stage, [out],
+                                      metrics=metrics, **extra)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        need_band(f"yearly {stage}", eq)
+        rec = cfg.yearly_record(eq, metrics, stage)
+        rows, ref_rows = rec["rows"], golden[f"{prefix}_rows"]
+        n = len(ref_rows)
+        if not (len(rows) == n and (rows[:, 2] == 1).all()):
+            raise AssertionError(f"yearly {stage}: steps {rows.tolist()}")
+        d_it = int(np.abs(rows[:, 0] - ref_rows[:, 0]).max())
+        if d_it > 1:
+            raise AssertionError(f"yearly {stage}: fixed-point counts "
+                                 f"{rows[:, 0].tolist()} vs golden "
+                                 f"{ref_rows[:, 0].tolist()}")
+        if band.launches - n0 <= 0:
+            raise AssertionError(f"yearly {stage}: band kernel never "
+                                 f"launched")
+        errs = {f: within(f"yearly {stage} {f}", rec[f],
+                          golden[f"{prefix}_{f}"], 1e-6)
+                for f in (*cfg.YEARLY_FIELDS[stage], "sig_v")}
+        want = [k * tc.dt for k in range(0, n + 1, every)]
+        if not np.allclose(saved_times(out, st), want, rtol=0, atol=1e-6):
+            raise AssertionError(f"yearly {stage}: saves at "
+                                 f"{saved_times(out, st)}, want {want}")
+        walls = [r["wall_s"] for r in metrics.records]
+        say("yearly", f"{stage}: {n} steps converged in {secs:.2f} s (dense "
+                      f"preconditioner build included); "
+                      f"{1e3 * sum(walls) / n:.1f} ms/step in the solver, "
+                      f"{1e3 * float(np.mean(walls[every:])):.1f} after the "
+                      f"first chunk; {rows[:, 0].mean():.2f} fixed-point "
+                      f"it/step (golden {ref_rows[:, 0].mean():.2f}, max "
+                      f"|difference| {d_it}); band launches "
+                      f"{band.launches - n0}, {(band.launches - n0) / n:.1f} "
+                      f"per step; vs golden "
+                      + ", ".join(f"{f} {e:.2e}" for f, e in errs.items())
+                      + f" (<=1e-6 max|ref|); {len(want)} saves at the "
+                      f"expected times")
+        total_steps += n
+        notes.append(1e3 * float(np.mean(walls[every:])))
+    with np.load(ck) as z:
+        step, n_keys = int(z["tc_step"]), len(z.files)
+    if step != cfg.YEARLY_CHECKPOINT_EVERY:
+        raise AssertionError(f"yearly: checkpoint at step {step}")
+    say("yearly", f"cavern_interlayer_1200: E={grid.n_elems}, "
+                  f"N={grid.n_nodes}, {3 * grid.n_nodes} DOFs; band kernel "
+                  f"and dense preconditioner selected by 'auto'; dense "
+                  f"inverse built {len(builds)} times (once per stage's "
+                  f"boundary conditions): "
+                  + ", ".join(f"{s:.2f} s" for s, _ in builds)
+                  + f", {builds[0][1] / 1e9:.3f} GB each; one checkpoint "
+                  f"({n_keys} arrays, step {step}); phase "
+                  f"{time.perf_counter() - t0:.1f} s, peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return band.launches, band.launches / total_steps
+
+
+def to_file_order(ref_grid, grid, u, sig_v):
+    """Nodal ``u`` and element ``sig_v`` of ``grid`` in the node and
+    element order of ``ref_grid`` (the same mesh, renumbered): nodes are
+    matched by their coordinates, elements by their nodes."""
+    def match(a_ref, a):
+        ia, ib = np.lexsort(a_ref.T), np.lexsort(a.T)
+        perm = np.empty(len(ia), dtype=np.int64)
+        perm[ia] = ib
+        if not np.array_equal(a[perm], a_ref):
+            raise AssertionError("order: the meshes do not match")
+        return perm
+
+    nperm = match(np.asarray(ref_grid.points), np.asarray(grid.points))
+    ref_of = np.empty(len(nperm), dtype=np.int64)
+    ref_of[nperm] = np.arange(len(nperm))
+    eperm = match(np.sort(np.asarray(ref_grid.conn), axis=1),
+                  np.sort(ref_of[np.asarray(grid.conn)], axis=1))
+    return u[nperm], sig_v[eperm]
+
+
+def order_phase(st, cfg):
+    """Phase 14: the unreordered cavern mesh and its alternatives."""
+    path = st.Utils.find_grid("cavern_regular_600_3D",
+                              fallback="cavern_proxy_600")
+    ways = (("file order, cumsum", None, False),
+            ("file order, block-ELL", None, True),
+            ("morton, block-ELL", "morton", True),
+            ("band, band kernel", "band", False))
+    eqs, ops, chunks = {}, {}, {}
+    for way, reorder, bell in ways:
+        grid = st.GridHandlerGMSH("geom", path, reorder=reorder)
+        eq = eqs[way] = cfg.wire_bench(st, grid, precond="auto")
+        if st.fem.momentum.select_backend(grid, eq.device) != (
+                "band" if reorder == "band" else "dia" if reorder is None
+                else None):
+            raise AssertionError(f"order {way}: backend selection")
+        if (eq.kernel.band is not None) != (reorder == "band") \
+                or eq.kernel.dia is not None:
+            raise AssertionError(f"order {way}: unexpected operator")
+        ops[way] = "band kernel" if reorder == "band" else "cumsum operator"
+        if bell:
+            eq.enable_blockell_matvec()
+            plan = eq.kernel.blockell.plan
+            ops[way] = (f"block-ELL K={plan.K}, Gn={plan.Gn}, f64 blocks "
+                        f"{plan.nbytes(8) / 1e6:.1f} MB, f32 "
+                        f"{plan.nbytes(4) / 1e6:.1f} MB")
+        cfg.elastic_init(eq)
+        chunks[way] = run_chunks(eq, HOUR, (3,))
+    chunks_in_turns(eqs, chunks)
+    ref = None
+    for way, eq in eqs.items():
+        rows = np.concatenate([r for r, _ in chunks[way]])
+        if not (rows[:, 5] == 1).all():
+            raise AssertionError(f"order {way}: non-converged steps")
+        u, sig = eq.u.cpu().numpy(), eq.sig_v.cpu().numpy()
+        if ref is None:
+            ref = (eq.grid, u, sig)
+            vs = "the reference of the other ways"
+        else:
+            u, sig = to_file_order(ref[0], eq.grid, u, sig)
+            vs = (f"u {within(f'order {way} u', u, ref[1], 1e-8):.2e}, sig_v "
+                  f"{within(f'order {way} sig_v', sig, ref[2], 1e-8):.2e} "
+                  f"vs the first way in the file's order (<=1e-8 max|ref|)")
+        ms = [1e3 * s / len(r) for r, s in chunks[way][1:]]
+        say("order", f"{way}: {ops[way]}; {ms[0]:.1f} and {ms[1]:.1f} ms/step "
+                     f"in the two timed 5-step chunks (the ways in turns), "
+                     f"{rows[3:, 0].mean():.2f} fixed-point it/step, "
+                     f"{rows[3:, 2].mean():.1f} Krylov it/step; {vs}")
+
+
+def point_phase(st, cfg, dev):
+    """Phase 15: the calibration fit and the triaxial twin on the card."""
+    import torch
+    golden = np.load(GOLDEN.format("point"))
+    f64 = torch.float64
+    observed = cfg.creep_observed()
+    model = cfg.creep_model(torch.exp, lambda x: torch.as_tensor(
+        x, dtype=f64, device=dev))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fitted, hist = st.calibrate(model, observed=observed,
+                                loss_scale=np.abs(observed).max(),
+                                **cfg.CREEP_FIT)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    steps = cfg.CREEP_FIT["steps"]
+    e_fit = {k: abs(float(fitted[k]) / float(golden[f"fit_{k}"]) - 1.0)
+             for k in ("A", "n")}
+    e_hist = float(np.abs(np.asarray(hist) / golden["history"] - 1.0).max())
+    if not (max(e_fit.values()) <= 1e-6 and e_hist <= 1e-6):
+        raise AssertionError(f"point: fitted {e_fit}, loss history {e_hist}")
+    say("point", f"calibrate (closed-form creep, {steps} Adam steps in log "
+                 f"space, autograd on the card): {1e3 * fit_s / steps:.2f} "
+                 f"ms/step; fitted A {float(fitted['A']):.6e}, n "
+                 f"{float(fitted['n']):.6f} (true {cfg.CREEP_TRUE['A']:.1e}, "
+                 f"{cfg.CREEP_TRUE['n']}); vs JAX golden: A {e_fit['A']:.2e}, "
+                 f"n {e_fit['n']:.2e} (<=1e-6), loss history {e_hist:.2e} "
+                 f"relative (<=1e-6); loss {hist[0]:.3e} -> {hist[-1]:.3e}")
+
+    times = golden["triax_times"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res, mat = cfg.triaxial_twin(
+        st, cfg.TRIAX_TRUE["cohesion"], cfg.TRIAX_TRUE["friction"], times,
+        lambda n: torch.ones(n, dtype=f64, device=dev))
+    torch.cuda.synchronize()
+    twin_s = time.perf_counter() - t0
+    if res["S_diff"].device.type != "cuda" or mat.device.type != "cuda":
+        raise AssertionError("point: the twin did not run on the card")
+    errs = {k: within(f"point {k}", res[k].cpu().numpy(), golden[k], 1e-9)
+            for k in ("S_diff", "sig_zz", "eps_vol", "eps_ne")}
+    say("point", f"TriaxialSimulator.run_compression ({len(times)} times, 2 "
+                 f"confinements, 12 Newton steps each): {twin_s:.2f} s, "
+                 f"{1e3 * twin_s / (len(times) - 1):.1f} ms per time step; "
+                 f"vs JAX golden "
+                 + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
+                 + " (<=1e-9 max|ref|)")
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tree", help="run phase 3 alone on the "
                     "safeincave_torch package of this checkout")
-    ap.add_argument("--json-child", nargs=2, metavar=("CASE", "RESULT"),
+    ap.add_argument("--json-child", nargs="+",
+                    metavar="CASE RESULT [auto|off]",
                     help="phase 9's child: run sim_cli on CASE, write the "
-                    "stage records to RESULT")
-    ap.add_argument("--phase", choices=("tm", "tm_box"),
+                    "stage records to RESULT; 'off' runs without the f32 "
+                    "sweep")
+    ap.add_argument("--phase", choices=("tm", "tm_box", "lag", "yearly",
+                                        "order", "point"),
                     help="after the build, run this phase alone (no kernel "
                     "JSON and no ok line)")
     args = ap.parse_args()
@@ -1123,6 +1509,14 @@ def main():
                  f"{time.perf_counter() - t0:.2f} s (nvcc: " + ", ".join(
                      f"{n} {_build.build_seconds.get(n, 0.0):.2f} s"
                      for n in KERNELS) + ")")
+    if hasattr(st.mesh, "native"):      # absent from an older --tree
+        if not st.mesh.native.available():
+            raise AssertionError("native/mesh_preprocess.cpp did not build "
+                                 "with the host compiler")
+        say("build", f"native mesh preprocessing: the C++ library ran "
+                     f"({os.path.basename(st.mesh.native._lib._name)}, g++ "
+                     f"{_build.build_seconds.get('sicpre', 0.0):.2f} s); the "
+                     f"numpy versions did not")
 
     # 3. kernels vs plain and cuSPARSE, every shape ------------------------ #
     if args.tree:
@@ -1132,8 +1526,13 @@ def main():
         return
     if args.phase:
         with tempfile.TemporaryDirectory() as tmp:
-            print(tm_phase(st, cfg, tmp) if args.phase == "tm"
-                  else tm_box_phase(st, cfg), flush=True)
+            print({"tm": lambda: tm_phase(st, cfg, tmp),
+                   "tm_box": lambda: tm_box_phase(st, cfg),
+                   "lag": lambda: lag_phase(st, cfg),
+                   "yearly": lambda: yearly_phase(st, cfg, tmp),
+                   "order": lambda: order_phase(st, cfg),
+                   "point": lambda: point_phase(st, cfg, dev)}[args.phase](),
+                  flush=True)
         print(card, flush=True)
         return
     kernel_rows = kernel_phase_child(tree)
@@ -1247,21 +1646,32 @@ def main():
         json_launches, json_per_step = json_phase(st, cfg, tmp)
         # 10. the thermo-mechanical driver on cavern600 --------------------- #
         tm_launches, tm_per_step = tm_phase(st, cfg, tmp)
+        # 13. the yearly production run on the 38k-tet mesh ----------------- #
+        yearly = yearly_phase(st, cfg, tmp)
 
     # 11. the coupled chunk on box17: block-DIA and the f32 sweep ---------- #
     tm_box_launches, tm_box_per_step = tm_box_phase(st, cfg)
 
+    # 12. tangent lagging and adaptive tolerances on the main path --------- #
+    lag = lag_phase(st, cfg)
+    # 14. node orders of the cavern mesh; 15. the point simulators --------- #
+    order_phase(st, cfg)
+    point_phase(st, cfg, dev)
+
     # launches of each path, each counted from 0 just before the path ran
     paths = {BAND["name"]: {"main": (launches, band_per_step),
                             "sim": (sim_launches, sim_per_step),
-                            "tm": (tm_launches, tm_per_step)},
+                            "tm": (tm_launches, tm_per_step),
+                            "lag": lag, "yearly": yearly},
              DIA["name"]: {"box": (launches_box, dia_per_step),
                            "json": (json_launches, json_per_step),
                            "tm_box": (tm_box_launches, tm_box_per_step)}}
     for row in kernel_rows:
         by_path = paths[row["name"]]
-        row["launches"], row["launches_per_step"] = next(
-            iter(by_path.values()))
+        # the row of the 1200 mesh reports the path that runs at its shape
+        own = "yearly" if row["shape"].startswith("cavern_interlayer_1200") \
+            else next(iter(by_path))
+        row["launches"], row["launches_per_step"] = by_path[own]
         row["launches_by_path"] = {k: n for k, (n, _) in by_path.items()}
         row["launches_per_step_by_path"] = {k: r for k, (_, r)
                                             in by_path.items()}

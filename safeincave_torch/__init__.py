@@ -1,6 +1,6 @@
 """safeincave_torch - PyTorch/CUDA port of safeincave_tpu.
 
-The port goes slice by slice; four are in:
+The port goes slice by slice; five are in:
 
 1. the cavern mechanics main path: band-reordered tet meshes, Spring +
    Viscoelastic + DislocationCreep + ViscoplasticDesai, Dirichlet supports
@@ -21,7 +21,16 @@ The port goes slice by slice; four are in:
    ``Simulator_TM`` over the fused ``solve_tm_time_steps``, checkpoints
    with the heat field, and the remaining mechanisms of the JSON schema
    (pressure-solution and Munson-Dawson creep, Mohr-Coulomb and
-   Matsuoka-Nakai viscoplasticity).
+   Matsuoka-Nakai viscoplasticity);
+5. the solver options and the surfaces around the solver: tangent lagging
+   and adaptive inner tolerances with the loose-mode rollback, the bf16
+   dense preconditioner, the assembled block-ELL operator, the
+   reference-style equation methods (``initialize``, ``compute_CT``,
+   ``compute_eps_rhs``, ``compute_stress``, ``solve``), Morton and RCB
+   reordering with the native preprocessing library, ``GridBoxRegions``,
+   the cavern mesh generator with its catalog (``mesh/cavern_gen.py``,
+   reached by ``find_grid``), and the material-point simulators with
+   ``calibrate`` on ``torch.autograd``.
 
 Module names follow ``safeincave_tpu`` so each counterpart is easy to find.
 Entry points run on the card unless given ``device="cpu"``.  The package
@@ -39,7 +48,7 @@ from .materials import (Material, NonElasticElement, Spring, Thermoelastic,
 from .timecontrol import (TimeControllerBase, TimeController,
                           TimeControllerParabolic, TimeControllerFromList,
                           AdaptiveTimeController, build_time_list_by_dp_limit)
-from .mesh import Grid, GridHandlerGMSH, GridBox
+from .mesh import Grid, GridHandlerGMSH, GridBox, GridBoxRegions
 from .fem import (LinearMomentumBase, LinearMomentum, SolverSettings,
                   HeatDiffusion)
 from .bcs import MomentumBC, HeatBC
@@ -47,6 +56,7 @@ from .output import SaveFields, ScreenPrinter
 from .simulators import (Simulator_M, Simulator_Mout, Simulator_T,
                          Simulator_TM)
 from .config import Simulator_GUI, run_from_json
+from .matpoint import MaterialPointSimulator, TriaxialSimulator, calibrate
 from .checkpoint import save_checkpoint, load_checkpoint
 from .metrics import StepMetrics
 from . import postproc as PostProcessingTools  # noqa: N812
@@ -61,7 +71,9 @@ __all__ = [
     "TimeControllerBase", "TimeController", "TimeControllerParabolic",
     "TimeControllerFromList", "AdaptiveTimeController",
     "build_time_list_by_dp_limit",
-    "Grid", "GridHandlerGMSH", "GridBox", "LinearMomentumBase",
+    "Grid", "GridHandlerGMSH", "GridBox", "GridBoxRegions",
+    "MaterialPointSimulator", "TriaxialSimulator", "calibrate",
+    "LinearMomentumBase",
     "LinearMomentum", "SolverSettings", "MomentumBC", "SaveFields",
     "ScreenPrinter", "Simulator_M", "Simulator_Mout", "Simulator_GUI",
     "run_from_json", "PostProcessingTools", "save_checkpoint",

@@ -1,4 +1,5 @@
-"""Build and load the hand-written CUDA kernels at first use.
+"""Build and load the hand-written CUDA kernels, and the host C++ mesh
+library, at first use.
 
 Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers), so
 ``nvcc`` compiles it in seconds into ``safeincave_torch/_build/`` and it is
@@ -94,6 +95,33 @@ def build(names) -> None:
                 proc.wait()
             if os.path.exists(tmp):
                 os.remove(tmp)
+
+
+HOST_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
+
+
+def host_library(src: str, stem: str) -> ctypes.CDLL:
+    """Compile the host C++ source ``src`` with ``g++`` into
+    ``_build/lib<stem>_<hash>.so`` (if that file is missing) and load it;
+    raises when the source, the compiler or the build fails."""
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(HOST_FLAGS).encode())
+    lib_path = os.path.join(BUILD_DIR,
+                            f"lib{stem}_{digest.hexdigest()[:16]}.so")
+    if not os.path.isfile(lib_path):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        t0 = time.perf_counter()
+        try:
+            subprocess.run(["g++", *HOST_FLAGS, "-o", tmp, src], check=True,
+                           capture_output=True, text=True)
+            os.replace(tmp, lib_path)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+        build_seconds[stem] = time.perf_counter() - t0
+    return ctypes.CDLL(lib_path)
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -129,6 +129,8 @@ class MomentumKernel:
         self.plan = ScatterPlan.build(grid.conn, grid.n_nodes, self.device)
         self.band = None          # optional CUDA band operator (f32 path)
         self.dia = None           # optional assembled block-DIA operator
+        self.blockell = None      # optional assembled block-ELL operator
+        self._node_gather = None  # node sums of (E, 4) contributions
 
     def enable_band(self):
         """Route the f32 Krylov stiffness action through the hand-written
@@ -145,6 +147,24 @@ class MomentumKernel:
         from .dia import BlockDIA
         self.dia = BlockDIA(self, max_offsets=max_offsets, min_fill=min_fill)
         return self.dia
+
+    def enable_blockell(self, G: int = 8):
+        """Route the Krylov stiffness action (both precisions) through the
+        assembled block-ELL operator (fem/blockell.py).  Works with any
+        node ordering; a locality-preserving one keeps K, the neighbour
+        groups per group, small.  Raises ValueError when the f64 block
+        tensor would pass 4 GiB."""
+        from .blockell import BlockELL
+        bell = BlockELL(self, G=G)
+        budget = 4 << 30
+        if bell.plan.nbytes(8) > budget:
+            raise ValueError(
+                f"block-ELL plan needs {bell.plan.nbytes(8) / 2**30:.1f} GiB "
+                f"(K={bell.plan.K} neighbour groups at G={G}); the mesh is "
+                f"not locality-ordered - rebuild the grid with "
+                f"reorder='band' (or 'morton') before enable_blockell")
+        self.blockell = bell
+        return self.blockell
 
     def geom(self, dtype):
         """(grad_N (4, 3, E), vol (E,)) in ``dtype``."""
@@ -180,6 +200,31 @@ class MomentumKernel:
         ev = strain_stacked(gather_u(u, self.conn), gN)           # (6, E)
         sv = (CT_soa * ev[None]).sum(1)                           # (6, E)
         return scatter(forces_stacked(sv, gN, vol), self.plan)
+
+    def diagonal(self, CT: torch.Tensor) -> torch.Tensor:
+        """diag(A(CT)) as (N, 3), for CT (E, 6, 6): per element and node the
+        energy of the unit-displacement strain basis, summed over each
+        node's elements through a :class:`NodeGather` (deterministic)."""
+        dt = CT.dtype
+        gN, vol = self.geom(dt)                                   # (4,3,E)
+        g = gN.permute(2, 0, 1)                                   # (E,4,3)
+        z = torch.zeros_like(g[..., 0])
+        h = 0.5 * g
+        # eps6[e, a, i, :]: strain of a unit displacement of node a along i
+        eps6 = torch.stack([
+            torch.stack([g[..., 0], z, z, h[..., 1], h[..., 2], z], -1),
+            torch.stack([z, g[..., 1], z, h[..., 0], z, h[..., 2]], -1),
+            torch.stack([z, z, g[..., 2], z, h[..., 0], h[..., 1]], -1),
+        ], dim=2)                                                 # (E,4,3,6)
+        sig6 = torch.einsum("ekl,eail->eaik", CT, eps6)
+        w = torch.tensor([1., 1., 1., 2., 2., 2.], dtype=dt,
+                         device=self.device)
+        d_e = (sig6 * eps6 * w).sum(-1) * vol[:, None, None]      # (E,4,3)
+        if self._node_gather is None:
+            self._node_gather = NodeGather.build(
+                self.conn_np.reshape(-1), self.n_nodes, self.device)
+        return torch.stack([self._node_gather.sum(d_e[..., i])
+                            for i in range(3)], dim=1)
 
     def body_force(self, density, g_vec) -> torch.Tensor:
         """int rho g . v dx with DG0 rho, P1 v: V rho g / 4 to each node."""

@@ -19,8 +19,13 @@ finish, as the JAX package does on an accelerator.
 step, nodal-to-element temperature, thermal strain, fixed point, commit)
 over a chunk of time steps.
 
-Not ported yet (queued in ROADMAP.md): tangent lagging, adaptive inner
-tolerances, the bf16 dense preconditioner and halo mode.
+``SolverSettings.lag_tangent`` and ``adaptive_rtol`` change the iteration
+path of that fixed point (fewer tangent builds, looser early solves with a
+rollback net), never its convergence criterion.  The reference-style
+mutating methods (``compute_CT``, ``compute_eps_rhs``, ``compute_stress``,
+``solve``) drive one linearized step by hand.
+
+Not ported yet (queued in ROADMAP.md): halo mode.
 """
 from __future__ import annotations
 
@@ -55,7 +60,24 @@ class SolverSettings:
     3x3 blocks.  "auto" picks dense on CUDA below the gate and 2level
     otherwise, as the JAX package does on an accelerator and on the CPU.
 
+    ``precond_bf16`` stores the dense inverse in bfloat16 and applies it
+    with float32 accumulation: half the device memory of the inverse, at the
+    price of more Krylov iterations.
+
     Every method other than "cg" runs BiCGStab, as in the JAX package.
+
+    ``adaptive_rtol`` solves the linearized systems only about two decades
+    tighter than the fixed-point error (``clip(0.05 err, rtol, 1e-4)``) until
+    the error is within 10x of the step's tolerance, then at ``rtol`` for
+    good; a loose iteration that stalls its solve, blows the stress past
+    three times the entry scale or goes non-finite rolls the step back to its
+    entry state and continues tight-only.  ``lag_tangent`` (ignored when
+    ``adaptive_rtol`` is on) rebuilds the consistent tangent suite only on
+    the first float64 iteration, after an iteration whose error did not
+    contract to 0.7 of the last, and once the error is within 10x of the
+    tolerance; every solve stays at ``rtol``.  In both modes convergence is
+    declared only on an iteration that was tight and ran a fresh tangent, so
+    committed fields satisfy the same criterion as the default path.
 
     ``fp32_phase``: "auto" runs the early fixed-point iterations of each
     time step entirely in float32 while the strain-change error is above
@@ -71,17 +93,12 @@ class SolverSettings:
     max_passes: int = 12        # defect-correction passes (mixed only)
     precond: str = "auto"       # "auto" | "dense" | "2level" | "jacobi"
     dense_max_dofs: int = 30_000
+    precond_bf16: bool = False
     coarse_agg: int = 16        # nodes per coarse aggregate
     adaptive_rtol: bool = False
     lag_tangent: bool = False
     fp32_phase: object = "auto"
     fp32_switch: float = 1e-4
-
-    def __post_init__(self):
-        for name in ("adaptive_rtol", "lag_tangent"):
-            if getattr(self, name):
-                raise NotImplementedError(
-                    f"{name}=True is not ported yet (queued in ROADMAP.md)")
 
     def fp32_enabled(self, device=None) -> bool:
         """Whether the f32 sweep runs for an equation on ``device`` (default:
@@ -175,6 +192,9 @@ def _dense_inverse_precond(kern, C, mask):
     return torch.linalg.inv(A) / scale
 
 
+_BF16_ROWS = 4096    # rows of the bf16 inverse widened to f32 per product
+
+
 def build_preconditioner(kern, C, mask, settings: SolverSettings):
     """(P, apply) for the masked operator, built once per wiring from the
     constant elastic stiffness ``C`` and the Dirichlet ``mask``;
@@ -189,13 +209,25 @@ def build_preconditioner(kern, C, mask, settings: SolverSettings):
 
     if mode == "dense":
         inv = _dense_inverse_precond(kern, C, mask)
+        if not settings.precond_bf16:
+            def apply_dense(P, r, m):
+                (inv,) = P
+                x = torch.mv(inv, r.reshape(-1).to(inv.dtype))
+                return x.reshape(-1, 3).to(r.dtype)
 
-        def apply_dense(P, r, m):
+            return (inv,), apply_dense
+
+        def apply_dense_bf16(P, r, m):
+            # bf16 operands, f32 products and sums: row blocks of the
+            # inverse are widened one at a time, so the apply never holds
+            # a second full-size matrix
             (inv,) = P
-            x = torch.mv(inv, r.reshape(-1).to(inv.dtype))
+            r32 = r.reshape(-1).to(inv.dtype).to(F32)
+            x = torch.cat([torch.mv(blk.to(F32), r32)
+                           for blk in inv.split(_BF16_ROWS)])
             return x.reshape(-1, 3).to(r.dtype)
 
-        return (inv,), apply_dense
+        return (inv.to(torch.bfloat16),), apply_dense_bf16
 
     blk_inv = _block_jacobi_arrays(kern, C, mask)
     if mode == "2level":
@@ -218,30 +250,37 @@ def build_preconditioner(kern, C, mask, settings: SolverSettings):
     return (blk_inv,), apply_bj
 
 
+def _assembled(kern):
+    """The assembled operator of ``kern``: block-DIA when the numbering is
+    offset-structured, else block-ELL when it was enabled, else None."""
+    return kern.dia if kern.dia is not None else kern.blockell
+
+
 def _f64_action(kern, CT_hi):
     """(f64 stiffness action, f64 planes or None) of one linearized solve.
 
-    A general (not structured) block-DIA operator assembles f64 planes and
-    applies them with the DIA kernel; otherwise the action is the cumsum
-    matvec (a structured box assembles only the f32 planes, which are cheap,
-    and keeps the exact f64 action matrix-free)."""
-    dia = kern.dia
-    if dia is not None and not dia.structured:
-        planes = dia.assemble(CT_hi)
-        return dia.operator(planes), planes
+    A general (not structured) block-DIA operator, or a block-ELL one,
+    assembles f64 planes and applies them; otherwise the action is the
+    cumsum matvec (a structured box assembles only the f32 planes, which are
+    cheap, and keeps the exact f64 action matrix-free)."""
+    op = _assembled(kern)
+    if op is not None and not op.structured:
+        planes = op.assemble(CT_hi)
+        return op.operator(planes), planes
     return (lambda x: kern.matvec(CT_hi, x)), None
 
 
 def _f32_action(kern, CT, planes_hi):
     """The f32 Krylov operator of one linearized solve: the f32 cast of the
-    general DIA planes, the DIA planes assembled from the f32 tangent on a
-    structured box, the band kernel, or the f32 cumsum matvec."""
-    dia = kern.dia
+    general DIA or block-ELL planes, the DIA planes assembled from the f32
+    tangent on a structured box, the band kernel, or the f32 cumsum
+    matvec."""
+    op = _assembled(kern)
     if planes_hi is not None:
-        return dia.operator(planes_hi.to(F32))
+        return op.operator(planes_hi.to(F32))
     CT_lo = kern.prep(CT.to(F32))
-    if dia is not None:
-        return dia.operator(dia.assemble(CT_lo))
+    if op is not None:
+        return op.operator(op.assemble(CT_lo))
     if kern.band is not None:
         return kern.band.operator(kern.band.pack_ct(CT_lo))
     return lambda x: kern.matvec(CT_lo, x)
@@ -404,8 +443,10 @@ class LinearMomentumBase:
 
     # -- wiring ------------------------------------------------------------ #
     def set_material(self, material):
+        """Wire the material and call :meth:`initialize`, the hook a
+        subclass overrides to add fields of its own."""
         self.mat = material
-        self.C = material.C
+        self.initialize()
 
     def set_T(self, T):
         self.Temp = self._f64(T)
@@ -541,9 +582,16 @@ class LinearMomentum(LinearMomentumBase):
     def __init__(self, grid, theta: float, auto_backend: bool = True,
                  device=None):
         super().__init__(grid, theta, device)
+        self.eps_rhs_v = torch.zeros((self.n_elems, 6), dtype=F64,
+                                     device=self.device)
         self._precond = None
         self._reset_solvers()
         self.fp32_accepted = 0
+        # fixed-point bookkeeping of the last step, beside krylov_total,
+        # and running totals over every step since the wiring
+        self.tangent_builds = self.rollbacks = 0
+        self.tangent_builds_total = self.rollbacks_total = 0
+        self.fp_iterations_total = 0
         backend = select_backend(grid, self.device) if auto_backend else None
         if backend == "dia":
             try:
@@ -571,6 +619,19 @@ class LinearMomentum(LinearMomentumBase):
         self.kernel.enable_dia(max_offsets=max_offsets, min_fill=min_fill)
         self._reset_solvers()
 
+    def enable_blockell_matvec(self, G: int = 8):
+        """Route the Krylov stiffness action (both precisions) through the
+        assembled block-ELL operator (fem/blockell.py): one assembly per
+        linearized solve, then every matvec is a gather of neighbour groups
+        and a batched multiply-reduce.  Any node ordering works; a
+        locality-preserving one keeps the neighbour count K small.  Never
+        selected automatically."""
+        self.kernel.enable_blockell(G=G)
+        self._reset_solvers()
+
+    def initialize(self):
+        self.C = self.mat.C
+
     def set_solver(self, solver):
         super().set_solver(solver)
         self._precond = None
@@ -584,6 +645,32 @@ class LinearMomentum(LinearMomentumBase):
     def compute_elastic_stress(self, eps_e):
         self.sig_v = apply66(self.mat.C, self._f64(_as_voigt(eps_e)))
         return self.sig_v
+
+    # -- reference-style mutating path: one linearized step by hand ------- #
+    def compute_CT(self, stress_k, dt):
+        sv_k = self._f64(_as_voigt(stress_k))
+        states, G, B6 = self.mat.f_tangent_all(
+            [e.state for e in self.mat.elems_ne], sv_k, self.Temp, dt,
+            self.theta)
+        for e, st in zip(self.mat.elems_ne, states):
+            e.state = st
+        self.mat.G = G
+        self.mat.B6 = B6
+        self.mat.CT = self.mat.f_CT(G, dt, self.theta)
+
+    def compute_stress(self, eps_tot, *_):
+        ev = self._f64(_as_voigt(eps_tot))
+        self.sig_v = apply66(self.mat.CT, ev - self.eps_rhs_v)
+        return self.sig_v
+
+    def compute_eps_rhs(self, dt, stress_k):
+        sv_k = self._f64(_as_voigt(stress_k))
+        eps = self.compute_eps_ne_k(dt)
+        eps_th = self.compute_eps_th()
+        if eps_th is not None:
+            eps = eps + eps_th
+        G_sk = apply66(self.mat.G, sv_k)
+        self.eps_rhs_v = eps - dt * (1 - self.theta) * (self.mat.B6 + G_sk)
 
     # ------------------------------------------------------------------ #
     def _get_precond(self):
@@ -625,6 +712,16 @@ class LinearMomentum(LinearMomentumBase):
         """Purely elastic boundary value problem."""
         b = self.b_body + self.bc.b_neumann
         self.u = self._linear_solve(self.mat.C, b)
+        self.run_after_solve()
+
+    def solve(self, stress_k, t, dt):
+        """One linearized inelastic step about ``stress_k``."""
+        self.compute_CT(stress_k, dt)
+        self.compute_eps_rhs(dt, stress_k)
+        b_rhs = self.kernel.internal_force(apply66(self.mat.CT,
+                                                   self.eps_rhs_v))
+        b = self.b_body + self.bc.b_neumann + b_rhs
+        self.u = self._linear_solve(self.mat.CT, b)
         self.run_after_solve()
 
     # ------------------------------------------------------------------ #
@@ -731,21 +828,38 @@ class LinearMomentum(LinearMomentumBase):
                      maxiter, fp32_on=True, eps_th=None):
         """One time step's fixed-point iteration: tangent -> CT -> eps_rhs
         -> Krylov -> strain -> stress -> ISV increment -> rates ->
-        strain-change error, until ``err <= tol`` (after at least one f64
-        iteration), ``maxiter``, or a non-finite error.  When the f32 phase
-        is enabled (and ``fp32_on``), :meth:`_fp32_sweep` runs first and
-        its iterations count towards ``maxiter``.  ``eps_th`` is the step's
-        thermal strain (:meth:`compute_eps_th`), constant over the
-        iteration.
+        strain-change error, until ``err <= tol`` after a tight iteration
+        on a fresh tangent, ``maxiter``, or a non-finite error.  When the
+        f32 phase is enabled (and ``fp32_on``), :meth:`_fp32_sweep` runs
+        first and its iterations count towards ``maxiter``.  ``eps_th`` is
+        the step's thermal strain (:meth:`compute_eps_th`), constant over
+        the iteration.
 
-        A diverged or stalled solve, or a non-finite stress, sets the error
-        to inf so the step fails instead of reading as converged.
+        By default every iteration rebuilds the tangent suite and solves at
+        ``rtol``.  With ``lag_tangent`` or ``adaptive_rtol``
+        (:class:`SolverSettings`) an iteration may reuse the suite of the
+        last build: G, CT and B are carried here, the mechanisms'
+        linearization scalars stay in their state dicts, and ``eps_rhs``
+        and the ISV increment expand about ``sv_lin``, the stress of that
+        build.  Whether to rebuild is decided on the host from the errors
+        the loop reads anyway.  A loose (adaptive) iteration whose solve
+        stalled, whose stress passed ``3 |sv_entry|max + 1e7`` or whose
+        error is not finite rolls states, stress, strain and displacement
+        back to the step's entry values, sets the error to 1 and keeps the
+        rest of the step tight.
+
+        A diverged solve, a tight solve stalled more than 4 decades above
+        its target, or a non-finite stress sets the error to inf so the
+        step fails instead of reading as converged.
 
         Returns (states, sv, eps_v, u, sv_k, iterations, err,
-        (krylov_total, krylov_last, lin_res))."""
+        (krylov_total, krylov_last, lin_res, tangent_builds, rollbacks))."""
         mat, kern, theta = self.mat, self.kernel, self.theta
         elems_ne = list(mat.elems_ne)
         trivial_error = theta == 1.0 or not elems_ne
+        adaptive = self.solver.adaptive_rtol and not trivial_error
+        lag = (self.solver.lag_tangent and not self.solver.adaptive_rtol
+               and not trivial_error)
         rtol = self.solver.rtol
         P, _ = self._get_precond()
         solve_lin = self._get_solver()
@@ -753,6 +867,10 @@ class LinearMomentum(LinearMomentumBase):
         free = 1.0 - mask
         phi1, phi2 = dt * theta, dt * (1 - theta)
 
+        # the entry snapshot shares its tensors with the live state: every
+        # update below makes new tensors, none writes in place
+        entry = (states, sv, eps_v, u)
+        sv_scale = float(sv.abs().max()) if adaptive else 0.0
         ite, err, sv_k, first = 0, 1.0, sv, True
         kry_tot, kry, lin_res = 0, 0, 0.0
         if (fp32_on and not trivial_error
@@ -760,41 +878,64 @@ class LinearMomentum(LinearMomentumBase):
             (states, sv, eps_v, u, ite, err, kry_tot, kry) = \
                 self._fp32_sweep(states, sv, eps_v, u, b_ext, mask, u_bc,
                                  eps_th, dt, maxiter, P)
-        while (err > tol and ite < maxiter and math.isfinite(err)) or first:
+        was_tight, have, contracted = False, False, True
+        G_p = CT = B6 = None
+        sv_lin = sv
+        builds = rollbacks = 0
+        while (((err > tol or not was_tight) and ite < maxiter
+                and math.isfinite(err)) or first):
             first = False
-            sv_k = sv
-            new_states, G, B6 = mat.f_tangent_all(states, sv_k, self.Temp,
-                                                  dt, theta)
-            G_p = kern.prep(G)
-            CT = kern.prep(mat.f_CT(G, dt, theta))
+            err_prev, sv_k = err, sv
+            tight, lin_rtol = True, rtol
+            if adaptive:
+                tight = was_tight or err_prev <= 10.0 * tol
+                if not tight:
+                    lin_rtol = min(max(0.05 * err_prev, rtol), 1e-4)
+                rebuild = not have or tight or not contracted
+            elif lag:
+                rebuild = (not have or not contracted
+                           or err_prev <= 10.0 * tol)
+            else:
+                rebuild = True
+            if rebuild:
+                new_states, G, B6 = mat.f_tangent_all(states, sv_k,
+                                                      self.Temp, dt, theta)
+                G_p = kern.prep(G)
+                CT = kern.prep(mat.f_CT(G, dt, theta))
+                sv_lin = sv_k
+                builds += 1
+            else:
+                new_states = states
             eps_ne_k = torch.zeros_like(sv)
             states2 = []
             for e, st in zip(elems_ne, new_states):
                 st = e.f_eps_k(st, phi1, phi2)
                 eps_ne_k = eps_ne_k + st["eps_k"]
                 states2.append(st)
-            G_sk = kern.apply66(G_p, sv_k)
+            G_sk = kern.apply66(G_p, sv_lin)
             if eps_th is not None:
                 eps_ne_k = eps_ne_k + eps_th
             eps_rhs = eps_ne_k - phi2 * (B6 + G_sk)
             b = b_ext + kern.internal_force(kern.apply66(CT, eps_rhs))
             x0 = mask * u + free * u_bc
             u_new, kry, res_t, bnorm_t = solve_lin(CT, b, mask, u_bc, x0,
-                                                   rtol, P)
+                                                   lin_rtol, P)
             lin_res, lin_bnorm = float(res_t), float(bnorm_t)
-            # solve acceptance: a diverged solve, or one stalled more than 4
-            # decades above rtol, fails the step (err=inf -> dt-retry)
+            # solve acceptance: a diverged solve, or a tight one stalled
+            # more than 4 decades above its target, fails the step (err=inf
+            # -> dt-retry); a loose one gets one decade and the rollback
             rel_res = lin_res / (lin_bnorm + 1e-300)
+            stalled = not rel_res <= (1e4 if tight else 10.0) * lin_rtol
             solve_ok = (math.isfinite(lin_res)
                         and lin_res <= 10.0 * lin_bnorm + 1e-30
-                        and rel_res <= 1e4 * rtol
+                        and not (tight and stalled)
                         and math.isfinite(float(torch.dot(
                             u_new.reshape(-1), u_new.reshape(-1)))))
             eps_new = kern.strain(u_new)
             sv_new = kern.apply66(CT, eps_new - eps_rhs)
             states3 = []
             for e, st in zip(elems_ne, states2):
-                st = e.f_increment_isv(st, sv_new, sv_k, dt)
+                st = e.f_increment_isv(st, sv_new, sv_lin, dt)
                 st = e.f_rate(st, sv_new, phi1, self.Temp)
                 states3.append(st)
             if trivial_error:
@@ -805,10 +946,24 @@ class LinearMomentum(LinearMomentumBase):
                 err = float(diff / ref)
             if not (solve_ok and bool(torch.isfinite(sv_new).all())):
                 err = math.inf
+            bad = not tight and (
+                stalled or not math.isfinite(err)
+                or float(sv_new.abs().max()) > 3.0 * sv_scale + 1e7)
+            if bad:
+                states3, sv_new, eps_new, u_new = entry
+                sv_k, err = entry[1], 1.0
+                rollbacks += 1
+            have = (have or rebuild) and not bad
+            contracted = bad or err < 0.7 * err_prev
+            was_tight = (tight and rebuild) or bad
             kry_tot += kry
             states, sv, eps_v, u = states3, sv_new, eps_new, u_new
             ite += 1
-        return states, sv, eps_v, u, sv_k, ite, err, (kry_tot, kry, lin_res)
+        self.tangent_builds_total += builds
+        self.rollbacks_total += rollbacks
+        self.fp_iterations_total += ite
+        return (states, sv, eps_v, u, sv_k, ite, err,
+                (kry_tot, kry, lin_res, builds, rollbacks))
 
     def _commit(self, states, sv, sv_k, dt):
         out = []
@@ -854,6 +1009,7 @@ class LinearMomentum(LinearMomentumBase):
         self._last_sv_k = sv_k
         self.krylov_total = stats[0]
         self.solver_stats = (stats[1], stats[2])
+        self.tangent_builds, self.rollbacks = stats[3], stats[4]
         self.run_after_solve()
         return ite, err
 
@@ -882,6 +1038,7 @@ class LinearMomentum(LinearMomentumBase):
                 self._fixed_point(states, sv, eps_v, x0,
                                   *self._step_inputs(t), dt, tol, maxiter,
                                   eps_th=eps_th)
+            self.tangent_builds, self.rollbacks = stats[3], stats[4]
             conv = math.isfinite(err) and err <= tol
             if conv:
                 states = self._commit(st_n, sv_n, sv_k, dt)
@@ -939,6 +1096,7 @@ class LinearMomentum(LinearMomentumBase):
                 self._fixed_point(states, sv, eps_v, x0,
                                   *self._step_inputs(t), dt, tol, maxiter,
                                   eps_th=self.compute_eps_th())
+            self.tangent_builds, self.rollbacks = stats[3], stats[4]
             conv = math.isfinite(err) and err <= tol
             if conv:
                 states = self._commit(st_n, sv_n, sv_k, dt)

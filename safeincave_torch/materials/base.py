@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from .._device import default_device
-from ..utils import tensor_to_voigt, voigt_to_tensor, voigt_weight
+from ..utils import iso6, tensor_to_voigt, voigt_to_tensor, voigt_weight
 
 F64 = torch.float64
 
@@ -66,6 +66,11 @@ class NonElasticElement:
         return torch.zeros(shape, dtype=F64, device=self.device)
 
     def _tensor(self, x) -> torch.Tensor:
+        """A parameter as a float64 tensor on the element's device.  A
+        tensor passes through with its autograd history, so a calibration
+        can differentiate through the constructor."""
+        if isinstance(x, torch.Tensor):
+            return x.to(device=self.device, dtype=F64)
         return torch.as_tensor(np.asarray(x, dtype=np.float64),
                                device=self.device)
 
@@ -158,7 +163,42 @@ class NonElasticElement:
         """Commit internal variables of a converged step (default: none)."""
         return state
 
+    # -- volumetric/deviatoric splits, Voigt-native ------------------------ #
+    def f_T_IT(self, state):
+        G = state["G"]
+        colsum = G[:, 0, :] + G[:, 1, :] + G[:, 2, :]            # (N, 6)
+        half = torch.tensor([1., 1., 1., 0.5, 0.5, 0.5], dtype=G.dtype,
+                            device=G.device)
+        IT = torch.zeros_like(G)
+        IT[:, :3, :] = colsum[:, None, :]
+        new = dict(state)
+        new["T"] = colsum * half
+        new["IT"] = IT
+        return new
+
+    def f_Bvol_Tvol(self, state):
+        new = dict(state)
+        new["T_vol"] = state["T"][:, 0] + state["T"][:, 1] + state["T"][:, 2]
+        new["B_vol"] = state["B"][:, 0] + state["B"][:, 1] + state["B"][:, 2]
+        return new
+
+    def f_Gtilde_Btilde(self, state):
+        new = dict(state)
+        new["G_tilde"] = state["G"] - state["IT"] / 3.0
+        vol = state["B_vol"][:, None] / 3.0
+        new["B_tilde"] = state["B"] - vol * iso6(state["B"])
+        return new
+
     # -- reference-compatible mutating API -------------------------------- #
+    def compute_T_IT(self):
+        self.state = self.f_T_IT(self.state)
+
+    def compute_Bvol_Tvol(self):
+        self.state = self.f_Bvol_Tvol(self.state)
+
+    def compute_Gtilde_Btilde(self):
+        self.state = self.f_Gtilde_Btilde(self.state)
+
     def compute_G_B(self, stress, dt, theta, Temp):
         self.state = self.f_tangent(self.state, self._sv(stress),
                                     self._T(Temp), dt, theta)

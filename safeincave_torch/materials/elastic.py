@@ -61,6 +61,11 @@ class Spring:
     def initialize(self):
         self.C = isotropic_C(self.E, self.nu)
         self.C_inv = isotropic_C_inv(self.E, self.nu)
+        # deviatoric operators: 2G and 1/(2G) on the whole diagonal
+        G2 = self.E / (1 + self.nu)
+        eye = np.eye(6)[None]
+        self.C_tilde = G2[:, None, None] * eye
+        self.C_tilde_inv = (1.0 / G2)[:, None, None] * eye
         self.K = self.E / (3 * (1 - 2 * self.nu))
 
     def compute_eps_e(self, stress):

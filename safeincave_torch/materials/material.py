@@ -11,7 +11,7 @@ import numpy as np
 import torch
 
 from .._device import default_device
-from ..linalg import inv6x6_fast
+from ..linalg import inv6x6, inv6x6_fast
 from .base import _as_voigt
 
 
@@ -24,11 +24,16 @@ class Material:
         self.elems_e = []
         self._C = np.zeros((n_elems, 6, 6))
         self._C_inv = np.zeros((n_elems, 6, 6))
+        self._C_tilde = np.zeros((n_elems, 6, 6))
+        self._C_tilde_inv = np.zeros((n_elems, 6, 6))
         self._set_elastic()
 
     def _set_elastic(self):
         self.C = torch.as_tensor(self._C, device=self.device)
         self.C_inv = torch.as_tensor(self._C_inv, device=self.device)
+        self.C_tilde = torch.as_tensor(self._C_tilde, device=self.device)
+        self.C_tilde_inv = torch.as_tensor(self._C_tilde_inv,
+                                           device=self.device)
         # inv(C_inv) on the host: the singular-tangent fallback
         self._CT_el = torch.as_tensor(np.linalg.inv(self._C_inv)
                                       if self.elems_e else self._C,
@@ -53,6 +58,8 @@ class Material:
         elem.initialize()
         self._C = self._C + elem.C
         self._C_inv = self._C_inv + elem.C_inv
+        self._C_tilde = self._C_tilde + elem.C_tilde
+        self._C_tilde_inv = self._C_tilde_inv + elem.C_tilde_inv
         self.elems_e.append(elem)
         self._set_elastic()
         self.K = elem.K
@@ -101,3 +108,42 @@ class Material:
 
     def compute_CT(self, dt, theta):
         self.CT = self.f_CT(self.G, dt, theta)
+
+    def _sum_states(self, compute, keys):
+        """Run ``compute`` on every inelastic element and sum its state
+        entries ``keys`` over the elements."""
+        sums = None
+        for e in self.elems_ne:
+            getattr(e, compute)()
+            vals = [e.state[k] for k in keys]
+            sums = vals if sums is None else [a + b
+                                              for a, b in zip(sums, vals)]
+        return sums
+
+    def _zeros(self, *shape):
+        return torch.zeros(shape, dtype=torch.float64, device=self.device)
+
+    def compute_T_IT(self):
+        n = self.n_elems
+        self.IT, self.T6 = self._sum_states("compute_T_IT", ("IT", "T")) \
+            or (self._zeros(n, 6, 6), self._zeros(n, 6))
+
+    def compute_Bvol_Tvol(self, stress=None, dt=None):
+        n = self.n_elems
+        self.B_vol, self.T_vol = self._sum_states(
+            "compute_Bvol_Tvol", ("B_vol", "T_vol")) \
+            or (self._zeros(n), self._zeros(n))
+
+    def compute_Gtilde_Btilde(self, stress=None, dt=None):
+        n = self.n_elems
+        self.G_tilde, self.B_tilde6 = self._sum_states(
+            "compute_Gtilde_Btilde", ("G_tilde", "B_tilde")) \
+            or (self._zeros(n, 6, 6), self._zeros(n, 6))
+
+    def compute_CT_tilde(self, dt, theta):
+        """Deviatoric consistent tangent (C_tilde_inv + dt(1-theta)
+        G_tilde)^-1, by the pivoted 6x6 inverse, with C_tilde where that is
+        singular."""
+        mat = self.C_tilde_inv + dt * (1 - theta) * self.G_tilde
+        CT, ok = inv6x6(mat)
+        self.CT_tilde = torch.where(ok[:, None, None], CT, self.C_tilde)

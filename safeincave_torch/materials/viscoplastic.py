@@ -328,6 +328,13 @@ def _perzyna_cutoff_rate(s, F_shear, dQdS, I1, p):
     return -dQdS * lmbda[:, None], Fvp
 
 
+def _host(x) -> np.ndarray:
+    """A parameter as host float64 (a tensor on any device included)."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, dtype=np.float64)
+
+
 class _PerfectViscoplastic(NonElasticElement):
     """A viscoplastic element without internal variables whose
     ``_rate_static(sv6, p)`` returns (rate, Fvp)."""
@@ -337,9 +344,9 @@ class _PerfectViscoplastic(NonElasticElement):
     def __init__(self, n_elems, name, device, cohesion, friction_angle,
                  dilation_angle):
         super().__init__(n_elems, name, device)
-        self.cohesion = np.asarray(cohesion, dtype=np.float64)
-        self.friction_angle = np.asarray(friction_angle, dtype=np.float64)
-        self.dilation_angle = np.asarray(dilation_angle, dtype=np.float64)
+        self.cohesion = _host(cohesion)
+        self.friction_angle = _host(friction_angle)
+        self.dilation_angle = _host(dilation_angle)
         self.state["Fvp"] = self._zeros(n_elems)
 
     def _rate(self, sv6, isv, T, p):
@@ -361,13 +368,24 @@ class MohrCoulombViscoplastic(_PerfectViscoplastic):
 
     def __init__(self, mu_1, N_1, cohesion, friction_angle, dilation_angle,
                  sigma_t, name: str = "mohr_coulomb", device=None):
-        super().__init__(len(mu_1), name, device, cohesion, friction_angle,
-                         dilation_angle)
-        sin_phi, cos_phi = np.sin(self.friction_angle), \
-            np.cos(self.friction_angle)
-        sin_psi = np.sin(self.dilation_angle)
+        args = (mu_1, N_1, cohesion, friction_angle, dilation_angle, sigma_t)
+        if any(isinstance(x, torch.Tensor) and x.requires_grad
+               for x in args):
+            # a calibration differentiates through the constructor: the
+            # Drucker-Prager coefficients stay tensors with their history
+            NonElasticElement.__init__(self, len(mu_1), name, device)
+            xp, t = torch, self._tensor
+            self.cohesion, self.friction_angle, self.dilation_angle = \
+                t(cohesion), t(friction_angle), t(dilation_angle)
+            self.state["Fvp"] = self._zeros(self.n_elems)
+        else:
+            super().__init__(len(mu_1), name, device, cohesion,
+                             friction_angle, dilation_angle)
+            xp, t = np, self._tensor
+        sin_phi, cos_phi = xp.sin(self.friction_angle), \
+            xp.cos(self.friction_angle)
+        sin_psi = xp.sin(self.dilation_angle)
         sq3 = np.sqrt(3.0)
-        t = self._tensor
         self.params = {
             "mu_1": t(mu_1), "N_1": t(N_1), "sigma_t": t(sigma_t),
             "alpha_F": t(2.0 * sin_phi / (sq3 * (3.0 - sin_phi))),

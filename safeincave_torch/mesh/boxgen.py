@@ -81,3 +81,23 @@ class GridBox(Grid):
 
     def __init__(self, Lx=1.0, Ly=1.0, Lz=1.0, nx=4, ny=4, nz=4):
         super().__init__(*box_mesh(Lx, Ly, Lz, nx, ny, nz))
+
+
+class GridBoxRegions(Grid):
+    """Two-region box: OMEGA_A / OMEGA_B split by a coordinate plane, so the
+    per-region parameter idiom (``grid.region_indices["OMEGA_A"]``) works
+    without a mesh file."""
+
+    def __init__(self, Lx=1.0, Ly=1.0, Lz=1.0, nx=4, ny=4, nz=4,
+                 split_axis=2, split_at=None):
+        points, tets, tet_tags, tris, tri_tags, fd = box_mesh(
+            Lx, Ly, Lz, nx, ny, nz)
+        if split_at is None:
+            split_at = 0.5 * (Lx, Ly, Lz)[split_axis]
+        cents = points[tets].mean(axis=1)
+        tet_tags = np.where(cents[:, split_axis] < split_at, 1, 2)
+        tet_tags = tet_tags.astype(np.int32)
+        fd.pop("BODY")
+        fd["OMEGA_A"] = (1, 3)
+        fd["OMEGA_B"] = (2, 3)
+        super().__init__(points, tets, tet_tags, tris, tri_tags, fd)

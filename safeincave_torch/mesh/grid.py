@@ -227,6 +227,10 @@ class GridHandlerGMSH(Grid):
     ``reorder="band"`` renumbers nodes by reverse Cuthill-McKee and sorts
     elements by their minimum node before the geometry is built (the layout
     the momentum equation's f32 band operator is selected for).
+    ``reorder="morton"``, or ``"rcb"`` with ``nparts``, orders the elements
+    along a Z-curve or into ``nparts`` compact blocks (kept in
+    ``elem_parts``) and renumbers the nodes by first touch; such a grid
+    reaches no hand-written kernel (mesh/reorder.py).
     """
 
     def __init__(self, geometry_name: str, grid_folder: str,

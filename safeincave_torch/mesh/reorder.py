@@ -1,19 +1,27 @@
-"""Band (RCM) mesh reordering (port of the ``band`` branch of
+"""Mesh reordering for memory locality and spatial partitioning (port of
 safeincave_tpu/mesh/reorder.py, with ``band_order`` from
 safeincave_tpu/fem/bandplan.py).
 
-Morton and RCB orderings run through ``native/mesh_preprocess.cpp`` in the
-JAX package; they are not ported yet and raise ``NotImplementedError``.
+* ``morton``: Z-order curve over the element centroids.
+* ``rcb``: recursive coordinate bisection into ``nparts`` spatially compact
+  blocks of equal size; the grid keeps each element's block in
+  ``elem_parts``.
+* ``band``: reverse Cuthill-McKee node order and elements sorted by their
+  smallest node, the layout the CUDA band kernel is selected for.
+
+Morton and RCB renumber the nodes by first touch in the new element order
+(``mesh/native.py``); ``band`` dictates the node order itself.  A Morton- or
+RCB-ordered grid reaches no hand-written kernel: ``select_backend``
+(fem/momentum.py) returns None for it, as the JAX package's accelerator
+selection does, so its stiffness action is the cumsum operator unless
+``enable_blockell_matvec`` is called.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from .grid import Grid
-
-_NOT_PORTED = ("reorder method {!r} is not ported yet (Morton/RCB through "
-               "native/mesh_preprocess.cpp is queued in ROADMAP.md); use "
-               "'band'")
+from .native import morton_order, node_first_touch, rcb_partition
 
 
 def band_order(conn: np.ndarray, n_nodes: int):
@@ -37,36 +45,56 @@ def band_order(conn: np.ndarray, n_nodes: int):
     return perm, elem_order
 
 
+def _orders(method, conn, n_nodes, centroids, nparts):
+    """(elem_order, node_perm, parts): ``elem_order[new] = old``,
+    ``node_perm[old] = new``, ``parts`` the RCB block of each element in
+    the new order (None for the other methods)."""
+    parts = None
+    if method == "band":
+        node_old, order = band_order(conn, n_nodes)
+        nperm = np.empty(n_nodes, np.int64)
+        nperm[node_old] = np.arange(n_nodes)
+        return order, nperm, parts
+    if method == "rcb":
+        if not nparts or nparts < 1:
+            raise ValueError("rcb reordering needs nparts >= 1")
+        parts, order = rcb_partition(centroids, nparts)
+        parts = parts[order]
+    elif method == "morton":
+        order = morton_order(centroids)
+    else:
+        raise ValueError(f"unknown reorder method {method!r}")
+    return order, node_first_touch(conn[order], n_nodes), parts
+
+
 def _field_data(grid) -> dict:
     return {name: (tag, dim) for dim, names in grid.dolfin_tags.items()
             for name, tag in names.items()}
 
 
 def reorder_arrays(points, tets, tet_tags, tris, tri_tags,
-                   method: str = "band", nparts: int | None = None):
-    """Band-reorder raw mesh arrays before Grid construction.
+                   method: str = "morton", nparts: int | None = None):
+    """Reorder raw mesh arrays before Grid construction.
 
-    Returns (points, tets, tet_tags, tris, tri_tags, parts=None)."""
-    if method != "band":
-        raise NotImplementedError(_NOT_PORTED.format(method))
-    node_old, order = band_order(tets, points.shape[0])
-    nperm = np.empty(points.shape[0], np.int64)
-    nperm[node_old] = np.arange(points.shape[0])   # old -> new
+    Returns (points, tets, tet_tags, tris, tri_tags, parts): elements in
+    the order of ``method``, nodes renumbered to match, ``parts`` the
+    per-element RCB block (None otherwise)."""
+    order, nperm, parts = _orders(method, tets, points.shape[0],
+                                  points[tets].mean(axis=1), nparts)
     tets_new = nperm[tets[order]].astype(np.int32)
     points_new = np.empty_like(points)
     points_new[nperm] = points
     tris_new = nperm[tris].astype(np.int32) if tris.shape[0] else tris
-    return points_new, tets_new, tet_tags[order], tris_new, tri_tags, None
+    return points_new, tets_new, tet_tags[order], tris_new, tri_tags, parts
 
 
-def reordered_grid(grid, method: str = "band", nparts: int | None = None):
+def reordered_grid(grid, method: str = "morton", nparts: int | None = None):
     """Return (new_grid, elem_order, node_perm) with
-    ``elem_order[new_pos] = old_elem`` and ``node_perm[old] = new``."""
-    if method != "band":
-        raise NotImplementedError(_NOT_PORTED.format(method))
-    node_old, order = band_order(grid.conn, grid.n_nodes)
-    nperm = np.empty(grid.n_nodes, np.int64)
-    nperm[node_old] = np.arange(grid.n_nodes)
+    ``elem_order[new_pos] = old_elem`` and ``node_perm[old] = new``:
+    element fields of the new grid are ``field[elem_order]``, nodal ones
+    ``new[node_perm] = old``."""
+    order, nperm, parts = _orders(method, grid.conn, grid.n_nodes,
+                                  grid.centroids, nparts)
     points_new = np.empty_like(grid.points)
     points_new[nperm] = grid.points
     conn_new = nperm[grid.conn[order]].astype(np.int32)
@@ -74,6 +102,8 @@ def reordered_grid(grid, method: str = "band", nparts: int | None = None):
     g2 = Grid(points_new, conn_new, grid.elem_tags[order], tris_new,
               grid.tri_tags, _field_data(grid))
     g2.reorder_method = method
+    if parts is not None:
+        g2.elem_parts = parts
     g2.elem_order = np.asarray(order)
     g2.node_perm = np.asarray(nperm)
     return g2, np.asarray(order), np.asarray(nperm)

@@ -158,17 +158,33 @@ def create_field_elems(grid, fun: Fn) -> np.ndarray:
     return _sample(np.asarray(grid.centroids), fun)
 
 
-def find_grid(name: str, fallback: str | None = None) -> str:
-    """Directory of a grid fixture under the repository's ``grids/``.
+# where the JAX package looks for a mounted checkout of the reference's
+# full-resolution meshes; both packages resolve a name there first
+REFERENCE_GRIDS = os.path.join(os.sep, "root", "reference", "grids")
 
-    Tries ``fallback`` first, then ``name``.  The JAX package can also
-    synthesize catalog cavern shapes on demand (mesh/cavern_gen.py); that
-    generator is not ported yet, so an unknown name raises.
+
+def find_grid(name: str, fallback: str | None = None) -> str:
+    """Directory of a grid fixture, found as the JAX package finds it.
+
+    The mounted reference checkout (``REFERENCE_GRIDS/<name>``) comes first
+    when it holds a ``geom.msh``, unless ``SAFEINCAVE_NO_REFERENCE=1``; then
+    the repository's ``grids/`` (``fallback`` before ``name``); then any
+    catalog cavern name (``cavern_<family>_<volume>_3D``) is synthesized
+    into ``grids/`` by ``mesh/cavern_gen.py``.
     """
+    no_ref = os.environ.get("SAFEINCAVE_NO_REFERENCE", "") == "1"
+    ref = os.path.join(REFERENCE_GRIDS, name)
+    if not no_ref and os.path.isfile(os.path.join(ref, "geom.msh")):
+        return ref
     repo_grids = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "grids")
     for cand in ([fallback] if fallback else []) + [name]:
         d = os.path.join(repo_grids, cand)
         if os.path.isfile(os.path.join(d, "geom.msh")):
             return d
-    raise FileNotFoundError(f"grid {name!r} not found under {repo_grids}")
+    from .mesh.cavern_gen import parse_grid_name, synthesize_grid
+    if parse_grid_name(name) is not None:
+        return synthesize_grid(name, repo_grids)
+    raise FileNotFoundError(
+        f"grid {name!r} not found (no mounted reference, no fixture under "
+        f"{repo_grids}, and not a catalog shape)")

@@ -35,6 +35,24 @@ tol 1e-8.
   and the fp32 phase forced on, 8 steps of bare ``solve_tm_time_steps``
   after ``tm_init``: ``u``, ``sig_v``, ``T`` and the (8, 6) ``rows``.
 
+- ``tests/golden/torch_port_lag_cavern600.npz`` and
+  ``torch_port_adaptive_cavern600.npz``: the cavern600 configuration with
+  ``lag_tangent=True`` / ``adaptive_rtol=True``, 13 steps (a chunk of 3 and
+  one of 10) as chip_smoke.py's lag phase runs each way: ``rows``, ``u``,
+  ``sig_v``;
+- ``tests/golden/torch_port_yearly_1200.npz``: the yearly production run of
+  examples/mechanics/nobian_yearly ``--full``
+  (``torch_port_configs.yearly_build``: the band-ordered 38k-tet
+  cavern_interlayer_1200 mesh, 2level, fp32 phase off) through
+  ``Simulator_M``: equilibrium 30 days at 5 days, then the first 4 days of
+  the CSV year at 6 h with saves every 8 steps and a checkpoint at step
+  16; per stage (``eq_`` / ``op_``) the step table, ``u``, ``sig_v`` (and
+  ``q_elems`` in operation);
+- ``tests/golden/torch_port_point.npz``: calibrate_creep.py's fit (300
+  Adam steps: fitted ``A``, ``n`` and the loss history) and one
+  ``TriaxialSimulator.run_compression`` of calibrate_triaxial.py's twin at
+  its true parameters (``S_diff``, ``sig_zz``, ``eps_vol``, ``eps_ne``).
+
 The two mechanics simulator goldens hold, per stage (``eq_`` and ``op_``
 prefixes), the step table (fixed-point iterations, error, converged) and
 the final fields the stage saves (u and p_elems; q_elems too in operation).
@@ -62,6 +80,8 @@ import safeincave_tpu.config  # noqa: E402,F401
 import torch_port_configs as cfg  # noqa: E402
 
 N_STEPS = 3
+LAG_CHUNKS = (3, 10)
+TRIAX_TIMES = np.linspace(0.0, 2000.0, 81)
 
 
 def _cavern600():
@@ -178,11 +198,67 @@ def tm_box17(tmp):
                 T=np.asarray(heat.T), rows=np.asarray(rows))
 
 
+def flagged_cavern600(flags):
+    """cavern600 with a solver option on, over LAG_CHUNKS."""
+    eq = cfg.wire_flagged(sc, cfg.cavern600_grid(sc), flags)
+    cfg.elastic_init(eq)
+    dt, t, rows = cfg.HOUR, cfg.HOUR, []
+    for n in LAG_CHUNKS:
+        rows.append(np.asarray(eq.solve_time_steps(
+            [t + k * dt for k in range(n)], [dt] * n, tol=1e-8, maxiter=40)))
+        t += n * dt
+    return dict(rows=np.concatenate(rows), u=np.asarray(eq.u),
+                sig_v=np.asarray(eq.sig_v))
+
+
+def yearly_1200(tmp):
+    """The yearly production run, as chip_smoke.py's yearly phase runs
+    it."""
+    grid, eq = cfg.yearly_build(sc)
+    data = {}
+    for prefix, stage, every, extra in (
+            ("eq", "equilibrium", 1, {}),
+            ("op", "operation", cfg.YEARLY_SAVE_EVERY,
+             dict(checkpoint_every=cfg.YEARLY_CHECKPOINT_EVERY,
+                  checkpoint_path=os.path.join(tmp, "ck.npz")))):
+        out = sc.SaveFields(eq, save_every=every)
+        out.set_output_folder(os.path.join(tmp, stage))
+        for f in cfg.YEARLY_FIELDS[stage]:
+            out.add_output_field(f, f)
+        m = sc.StepMetrics()
+        cfg.run_yearly_stage(sc, eq, grid, stage, [out], metrics=m, **extra)
+        data.update({f"{prefix}_{k}": v for k, v
+                     in cfg.yearly_record(eq, m, stage).items()})
+    return data
+
+
+def point(tmp):
+    """The calibration fit and the triaxial twin, as chip_smoke.py's point
+    phase runs them."""
+    import jax.numpy as jnp
+    observed = cfg.creep_observed()
+    fitted, history = sc.calibrate(
+        cfg.creep_model(jnp.exp, jnp.asarray), observed=observed,
+        loss_scale=np.abs(observed).max(), **cfg.CREEP_FIT)
+    res, _ = cfg.triaxial_twin(sc, cfg.TRIAX_TRUE["cohesion"],
+                               cfg.TRIAX_TRUE["friction"], TRIAX_TIMES,
+                               jnp.ones)
+    return dict(fit_A=np.asarray(fitted["A"]), fit_n=np.asarray(fitted["n"]),
+                history=np.asarray(history), triax_times=TRIAX_TIMES,
+                **{k: np.asarray(res[k])
+                   for k in ("S_diff", "sig_zz", "eps_vol", "eps_ne")})
+
+
 CASES = {"cavern600": lambda tmp: write_steps(_cavern600),
          "box17": lambda tmp: write_steps(_box17),
          "sim_cavern600": sim_cavern600, "json_box17": json_box17,
          "tm_cavern600": tm_cavern600, "t_cavern600": t_cavern600,
-         "tm_box17": tm_box17}
+         "tm_box17": tm_box17,
+         "lag_cavern600": lambda tmp: flagged_cavern600(
+             {"lag_tangent": True}),
+         "adaptive_cavern600": lambda tmp: flagged_cavern600(
+             {"adaptive_rtol": True}),
+         "yearly_1200": yearly_1200, "point": point}
 
 
 def write(name):

@@ -1,6 +1,7 @@
 """The CUDA kernels of safeincave_torch on the card, at the shapes that
-chip_smoke.py measures: the band kernel at cavern_proxy_600 (the main path)
-and at the band-ordered GridBox nx=44 (bench.py's scale size), the block-DIA
+chip_smoke.py measures: the band kernel at cavern_proxy_600 (the main path),
+at the band-ordered GridBox nx=44 (bench.py's scale size) and at the
+band-ordered 38k-tet cavern_interlayer_1200 (the yearly path), the block-DIA
 kernel at nx=17 (the box path) and nx=44 in f32, and at nx=17 in f64.
 
 Each kernel against its plain twin on a random energy-symmetric tangent
@@ -65,10 +66,11 @@ def _hold(op, counter, plain, u, v, tol, sym_tol):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", ["cavern600", "box44_band"])
+@pytest.mark.parametrize("shape", ["cavern600", "box44_band", "cavern1200"])
 def test_band_kernel(cuda, shape):
-    grid = cfg.cavern600_grid(st) if shape == "cavern600" else \
-        reordered_grid(_box(44), "band")[0]
+    grid = {"cavern600": lambda: cfg.cavern600_grid(st),
+            "box44_band": lambda: reordered_grid(_box(44), "band")[0],
+            "cavern1200": lambda: cfg.yearly_grid(st)}[shape]()
     rng = np.random.default_rng(0)
     band = BandMatvec(MomentumKernel(grid, cuda))
     ctv = band.pack_ct(_random_ct(grid.n_elems, rng, torch.float32, cuda))

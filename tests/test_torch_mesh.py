@@ -115,10 +115,15 @@ def test_find_grid_matches_jax():
 
 
 def test_unported_reorderings_raise():
+    """Every ordering of the JAX package is ported (tests/
+    test_torch_reorder.py holds Morton and RCB against it); what raises is a
+    method neither package has."""
     box = st.GridBox(nx=2, ny=2, nz=2)
     for method in ("morton", "rcb"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            port_reordered(box, method=method, nparts=2)
+        grid = port_reordered(box, method=method, nparts=2)[0]
+        assert grid.reorder_method == method
+    with pytest.raises(ValueError, match="unknown reorder method"):
+        port_reordered(box, method="hilbert")
 
 
 def test_import_without_jax():
@@ -127,7 +132,9 @@ def test_import_without_jax():
     code = ("import sys; sys.modules['jax'] = None; "
             "import safeincave_torch, safeincave_torch.interop, "
             "safeincave_torch.fem.bandkernel, safeincave_torch._build, "
-            "safeincave_torch.app.sim_cli, safeincave_torch.postproc; "
+            "safeincave_torch.app.sim_cli, safeincave_torch.postproc, "
+            "safeincave_torch.matpoint, safeincave_torch.mesh.cavern_gen, "
+            "safeincave_torch.mesh.native, safeincave_torch.fem.blockell; "
             "assert 'h5py' not in sys.modules; "
             "assert 'safeincave_tpu' not in sys.modules; print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

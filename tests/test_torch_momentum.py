@@ -229,18 +229,21 @@ def test_dense_preconditioner_matches_jax():
     np.testing.assert_allclose(zp, zj, rtol=0, atol=1e-4 * np.abs(zj).max())
 
 
-def test_unported_solver_options_raise():
-    """lag_tangent and adaptive_rtol are not ported; the f32 phase is: its
-    "auto" resolves by the equation's device, as the JAX package's does by
-    backend, and True forces it anywhere."""
+def test_fp32_phase_auto_resolves_by_device():
+    """The f32 phase's "auto" resolves by the equation's device, as the JAX
+    package's does by backend, and True forces it anywhere.  The solver
+    options construct with the JAX package's defaults (tangent lagging,
+    adaptive tolerances and the bf16 preconditioner off); their behaviour
+    is held in tests/test_torch_lag.py and test_torch_equation_api.py."""
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
     auto = st.SolverSettings(fp32_switch=1e-4)
     assert auto.fp32_enabled(cpu) is False and auto.fp32_enabled(cuda)
     assert st.SolverSettings(fp32_phase=True).fp32_enabled(cpu)
     assert not st.SolverSettings(fp32_phase=False).fp32_enabled(cuda)
-    for kw in (dict(lag_tangent=True), dict(adaptive_rtol=True)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            st.SolverSettings(**kw)
+    for name in ("lag_tangent", "adaptive_rtol", "precond_bf16"):
+        assert getattr(auto, name) is False
+        assert getattr(auto, name) == getattr(sc.SolverSettings(), name)
+        assert getattr(st.SolverSettings(**{name: True}), name) is True
 
 
 # -- the f32 fixed-point sweep ---------------------------------------------- #

@@ -9,8 +9,13 @@ JAX package takes no such argument.  The material and loads are the cavern
 benchmark's (bench.py:build): Spring + Viscoelastic + DislocationCreep +
 ViscoplasticDesai, roller supports on the three lower faces and a 24 h
 sinusoidal pressure on the loaded faces.  The thermo-mechanical set-ups
-(``wire_tm``) take bench.py's second configuration (bench_tm).
+(``wire_tm``) take bench.py's second configuration (bench_tm).  The yearly
+production run (``yearly_*``) is examples/mechanics/nobian_yearly/main.py
+``--full``; the calibration twins (``creep_model``, ``triaxial_twin``) are
+those of examples/mechanics/MaterialCalibration.
 """
+import os
+
 import numpy as np
 
 MPa = 1e6
@@ -94,6 +99,16 @@ def box17_grid(pkg):
     """bench.py's box configuration (its fallback when no cavern mesh is
     found), in natural order: 5,832 nodes, 29,478 tets."""
     return pkg.GridBox(Lx=600.0, Ly=600.0, Lz=800.0, nx=17, ny=17, nz=17)
+
+
+def wire_flagged(pkg, grid, flags, precond="2level", device=None, **eq_kw):
+    """:func:`wire_bench` with solver options (``lag_tangent``,
+    ``adaptive_rtol``, ``precond_bf16``) beside the pinned settings, the
+    f32 sweep off."""
+    eq = wire_bench(pkg, grid, precond=precond, device=device, **eq_kw)
+    eq.set_solver(pkg.SolverSettings(precond=precond, fp32_phase=False,
+                                     **SETTINGS, **flags))
+    return eq
 
 
 def tm_material(pkg, n, device=None):
@@ -463,3 +478,185 @@ def elastic_init(eq):
     eq.compute_elastic_stress(eps)
     eq.compute_eps_ne_rate(eq.sig_v, 0.0)
     eq.update_eps_ne_rate_old()
+
+
+# -- the yearly production run (examples/mechanics/nobian_yearly --full) ---- #
+YEARLY_CSV = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                          "examples", "mechanics", "nobian_yearly", "data",
+                          "operational_year.csv")
+DAY = 24 * HOUR
+# depth of the run: the mesh and the material are the example's, the
+# equilibrium stage is its 30 days at 5 days, and of the 365-day operational
+# year the first YEARLY_DAYS run at the example's documented 6 h step
+YEARLY_DAYS = 4.0
+YEARLY_DT_HOURS = 6.0
+YEARLY_SAVE_EVERY = 8
+YEARLY_CHECKPOINT_EVERY = 16
+
+
+def yearly_grid(pkg):
+    """The repo's 38k-tet production mesh (7,669 nodes), band-ordered."""
+    return pkg.GridHandlerGMSH(
+        "geom", pkg.Utils.find_grid("cavern_interlayer_1200"),
+        reorder="band")
+
+
+def yearly_build(pkg, device=None, precond="2level", fp32_phase=False):
+    """nobian_yearly's ``build(full=True)``: the band-ordered 38k-tet
+    cavern_interlayer_1200 mesh and the region-masked material (Spring,
+    Kelvin-Voigt, dislocation creep in the salt, Mohr-Coulomb in the
+    interlayers).  Returns (grid, equation)."""
+    dev = on(pkg, device)
+    grid = yearly_grid(pkg)
+    regions = grid.get_subdomain_names()
+
+    def per_region(salt_val, inter_val, over_val):
+        return np.asarray(grid.get_parameter(
+            {r: (inter_val if "nterlayer" in r
+                 else over_val if "verburden" in r else salt_val)
+             for r in regions}))
+
+    n = grid.n_elems
+    one = np.ones(n)
+    inter = per_region(0.0, 1.0, 0.0)
+    salt = per_region(1.0, 0.0, 0.0)
+    eq = pkg.LinearMomentum(grid, theta=0.5, **dev)
+    eq.set_solver(pkg.SolverSettings(method="bicgstab", rtol=1e-12,
+                                     max_it=400, coarse_agg=8,
+                                     precond=precond, fp32_phase=fp32_phase))
+    GPa = 1e9
+    mat = pkg.Material(n, **dev)
+    mat.set_density(per_region(2200.0, 2900.0, 2500.0))
+    mat.add_to_elastic(pkg.Spring(per_region(102, 70, 35) * GPa,
+                                  per_region(0.30, 0.27, 0.25)))
+    mat.add_to_non_elastic(pkg.Viscoelastic(
+        per_region(105e11, 105e13, 105e13), 10 * GPa * one, 0.32 * one,
+        **dev))
+    mat.add_to_non_elastic(pkg.DislocationCreep(
+        1.9e-20 * salt, 51600 * one, 3.0 * one, name="ds_creep", **dev))
+    mat.add_to_non_elastic(pkg.MohrCoulombViscoplastic(
+        mu_1=1e-9 * inter, N_1=1.0 * one, cohesion=4.0 * one,
+        friction_angle=np.radians(35.0) * one, dilation_angle=0.0 * one,
+        sigma_t=1.0 * one, name="mc_interlayer", **dev))
+    eq.set_material(mat)
+    eq.set_T0(298.0 * one)
+    eq.set_T(298.0 * one)
+    eq.build_body_force([0.0, 0.0, 0.0])
+    return grid, eq
+
+
+def yearly_bcs(pkg, eq, grid, t_vals, p_vals, p_top_pa=15 * MPa):
+    """nobian_yearly's ``set_bcs``: roller sides, the overburden load on
+    Top, the schedule on the cavern wall with the gas-column depth
+    correction from the cavern's top."""
+    momBC = pkg.MomentumBC
+    names = grid.get_boundary_names()
+    cav_tris = grid.tris[grid.get_boundary_tags("Cavern")]
+    z_cav_top = float(grid.points[np.unique(cav_tris)][:, 2].max())
+    bc = momBC.BcHandler(eq)
+    tv = [0.0, max(t_vals[-1], 1.0)]
+    for nm, comp in (("West", 0), ("East", 0), ("South", 1), ("North", 1),
+                     ("Bottom", 2)):
+        if nm in names:
+            bc.add_boundary_condition(momBC.DirichletBC(nm, comp, [0., 0.],
+                                                        tv))
+    if "Top" in names:
+        bc.add_boundary_condition(momBC.NeumannBC(
+            "Top", 2, 0.0, 0.0, [p_top_pa, p_top_pa], tv, g=0.0))
+    bc.add_boundary_condition(momBC.NeumannBC(
+        "Cavern", 2, 8.02, z_cav_top, list(p_vals), list(t_vals), g=-9.81))
+    eq.set_boundary_conditions(bc)
+
+
+def run_yearly_stage(pkg, eq, grid, stage, outputs, **sim_kw):
+    """One stage of the yearly run through ``pkg.Simulator_M``:
+    "equilibrium" (30 days at 5 days, 10 MPa in the cavern, elastic
+    response first) or "operation" (the first ``YEARLY_DAYS`` of the CSV
+    year at ``YEARLY_DT_HOURS``, rescaled into the 7-12 MPa window, mode
+    "direct").  Returns the stage's time controller."""
+    if stage == "equilibrium":
+        tc = pkg.TimeController(dt=5.0, initial_time=0.0, final_time=30.0,
+                                time_unit="day")
+        yearly_bcs(pkg, eq, grid, [0.0, tc.t_final], [10 * MPa, 10 * MPa])
+    else:
+        from importlib import import_module
+        schedules = import_module(pkg.__name__ + ".schedules")
+        tc = pkg.TimeController(dt=YEARLY_DT_HOURS, initial_time=0.0,
+                                final_time=YEARLY_DAYS * 24.0,
+                                time_unit="hour")
+        t_vals, p_vals = schedules.build_csv_pressure_schedule(
+            tc, YEARLY_CSV, days=YEARLY_DAYS, mode="direct", total_cycles=1,
+            rescale=True, rescale_min=7.0, rescale_max=12.0)
+        yearly_bcs(pkg, eq, grid, t_vals, p_vals)
+    pkg.Simulator_M(eq, tc, outputs,
+                    compute_elastic_response=stage == "equilibrium",
+                    **sim_kw).run()
+    return tc
+
+
+YEARLY_FIELDS = {"equilibrium": ("u",), "operation": ("u", "q_elems")}
+
+
+def yearly_record(eq, metrics, stage):
+    """What the yearly golden keeps of a stage: the step table and the
+    fields the stage saves, and sig_v."""
+    rec = stage_record(eq, metrics)
+    out = {"rows": rec["rows"], "sig_v": as_np(eq.sig_v)}
+    for f in YEARLY_FIELDS[stage]:
+        out[f] = as_np(getattr(eq, f))
+    return out
+
+
+# -- the calibration twins (examples/mechanics/MaterialCalibration) --------- #
+CREEP_SIG = np.diag([-4e6, -4e6, -14e6])
+CREEP_TIMES = np.linspace(0.0, 48 * 3600.0, 49)
+CREEP_TRUE = {"A": 1.9e-20, "Q": 51600.0, "n": 3.0}
+CREEP_FIT = dict(params0={"A": 5e-20, "n": 2.5}, lr=0.05, steps=300)
+
+
+def creep_model(exp, asarray):
+    """calibrate_creep.py's closed-form forward model (the axial
+    dislocation-creep strain under constant stress) for an array library:
+    ``exp`` its exponential, ``asarray`` its float64 constructor."""
+    dev_zz = CREEP_SIG[2, 2] - np.trace(CREEP_SIG) / 3.0
+    q = abs(CREEP_SIG[2, 2] - CREEP_SIG[0, 0])
+
+    def axial_creep_strain(params):
+        A_bar = (params["A"] * exp(-asarray(CREEP_TRUE["Q"]) / 8.32 / 298.0)
+                 * q ** (params["n"] - 1.0))
+        return A_bar * dev_zz * asarray(CREEP_TIMES)
+
+    return axial_creep_strain
+
+
+def creep_observed():
+    """calibrate_creep.py's synthetic record: the true parameters' strain
+    with 1 % seeded noise (numpy only)."""
+    clean = creep_model(np.exp, np.asarray)(CREEP_TRUE)
+    rng = np.random.default_rng(0)
+    return clean * (1 + 0.01 * rng.standard_normal(clean.shape))
+
+
+TRIAX_SR = np.array([-2.0 * MPa, -5.0 * MPa])
+TRIAX_TRUE = {"cohesion": 3.0, "friction": np.radians(30.0)}
+
+
+def triaxial_twin(pkg, cohesion, friction, times, ones, device=None):
+    """calibrate_triaxial.py's ``run_twin``: the Mohr-Coulomb triaxial
+    compression twin at two confinements, differentiable in (cohesion,
+    friction); ``ones(n)`` makes the package's vector of ones.  Returns the
+    ``run_compression`` result and the material."""
+    n = len(TRIAX_SR)
+    one = ones(n)
+    dev = on(pkg, device)
+    mat = pkg.Material(n, **dev)
+    mat.add_to_elastic(pkg.Spring(25e9 * np.ones(n), 0.3 * np.ones(n)))
+    mat.add_to_non_elastic(pkg.MohrCoulombViscoplastic(
+        mu_1=2e-5 * one, N_1=1.5 * one, cohesion=cohesion * one,
+        friction_angle=friction * one,
+        dilation_angle=np.radians(10.0) * one, sigma_t=1.0 * one, **dev))
+    sim = pkg.TriaxialSimulator(mat, theta=0.5)
+    Ci = as_np(mat.C_inv)
+    eps0 = (Ci[:, 2, 0] + Ci[:, 2, 1] + Ci[:, 2, 2]) * TRIAX_SR
+    ez = eps0[None, :] - 1e-5 * np.asarray(times)[:, None]
+    return sim.run_compression(TRIAX_SR, ez, times), mat
