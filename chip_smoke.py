@@ -154,6 +154,32 @@ Phases, one line each; any failure raises and the exit code is non-zero:
              tests/golden/torch_port_point.npz, the twin's histories within
              1e-9 max|ref|.
 
+16. halo   - the parallel layer, last (it profiles, and the profiler leaves
+             a cost on every later launch of its process).  The cavern600
+             main path (phase 4's configuration, sweep off) converted by
+             ``shard_equation(eq, make_device_mesh(8), mode="halo")``: all 8
+             parts on the card, S=507, H=163, R=6 checked, the
+             ``halo_two_level`` preconditioner, no band or DIA launch on
+             the sharded equation; elastic response, a 3-step chunk, then a
+             5-step chunk in turns with the unsharded run of the same
+             configuration.  Against tests/golden/torch_port_halo_cavern600
+             .npz (JAX ``shard_equation`` over 8 virtual CPU devices):
+             elastic u 1e-8 relative, 3-step u and sig_v 1e-6 max|ref|,
+             fixed-point counts +-1; against the unsharded 3 steps: u rtol
+             1e-8 (atol 1e-13 m), sig_v rtol 1e-8 (atol 0.1 Pa).  Then box17
+             (phase 6's configuration) in 4 parts with ``mode="psum"``
+             against its unsharded run over 3 steps, the same criteria;
+             ``shard_tm`` of ``wire_tm`` on cavern600 in 4 parts, 2 fused
+             steps, against the unsharded pair (T rtol 1e-10 atol 1e-8, u
+             rtol 1e-8); and the app layer: ``InputFileBuilder`` writes and
+             validates a 2-step case over box_mesh(nx=3),
+             ``SimulatorRunner`` runs it in a child ``sim_cli`` on the card
+             (exit 0, streamed step rows, saves at 0, 1 and 2 h).  Per way
+             (halo, psum, unsharded): ms/step, fixed-point and Krylov
+             iterations per step, device launches per f64 and f32 matvec
+             (torch.profiler) and rows received per matvec, each line with
+             the card's name and power limit.
+
 Phase 9 runs its case twice, with the f32 sweep as "auto" selects it and
 with ``fp32_phase=False``, and prints both lines.
 
@@ -168,7 +194,7 @@ runs phase 3 alone on the ``safeincave_torch`` package of another checkout
 the kernels in turns within one call; it prints the kernel JSON and the
 card, and no ``ok`` line.
 
-    python3 chip_smoke.py --phase tm|tm_box|lag|yearly|order|point
+    python3 chip_smoke.py --phase tm|tm_box|lag|yearly|order|point|halo
 
 builds the kernels and runs that phase alone (no ``ok`` line).
 """
@@ -1459,6 +1485,387 @@ def point_phase(st, cfg, dev):
                  + " (<=1e-9 max|ref|)")
 
 
+def launches_per_call(fn, dev, n=5):
+    """Device launches (kernels, copies, fills) one call of ``fn`` makes,
+    from torch.profiler over n calls; None off the card, or where the
+    profiler recorded no device event."""
+    if dev.type != "cuda":
+        return None
+    fn()
+    us = DeviceTimer._kernel_us(fn, n)
+    return sum(k for _, k in us.values()) / n if us else None
+
+
+def allclose(tag, got, ref, rtol, atol):
+    """numpy's allclose test, raising with the worst element; returns
+    max|got - ref| / max|ref|."""
+    err = np.abs(got - ref) - (atol + rtol * np.abs(ref))
+    if not (err <= 0).all():
+        i = np.unravel_index(np.argmax(err), err.shape)
+        raise AssertionError(f"{tag}: {got[i]} vs {ref[i]} at {i} (rtol "
+                             f"{rtol}, atol {atol})")
+    return float(np.abs(got - ref).max() / np.abs(ref).max())
+
+
+# sitecustomize of the app run's child on a machine without h5py: the JSON
+# driver's SaveFields becomes a sink that records the times it saved
+SINK_SITE = '''
+import json
+import os
+
+_path = os.environ.get("SAFEINCAVE_SAVES_JSON")
+if _path:
+    import safeincave_torch.config as _config
+
+    class _TimesSink:
+        def __init__(self, eq, save_every=1):
+            self.save_every, self.fields, self._calls = save_every, [], 0
+            self.times, self.folder = [], ""
+
+        def set_output_folder(self, folder):
+            self.folder = folder
+
+        def add_output_field(self, name, label):
+            self.fields.append((name, label))
+
+        def initialize(self):
+            pass
+
+        def calls_until_next_keep(self):
+            j = (1 - self._calls) % self.save_every
+            return j if j else self.save_every
+
+        def skip_calls(self, k):
+            self._calls += k
+
+        def save_fields(self, t):
+            if self._calls % self.save_every == 0:
+                self.times.append(float(t))
+            self._calls += 1
+
+        def save_mesh(self):
+            rec = {}
+            if os.path.isfile(_path):
+                with open(_path) as f:
+                    rec = json.load(f)
+            rec[os.path.basename(self.folder)] = self.times
+            with open(_path, "w") as f:
+                json.dump(rec, f)
+
+    _config.SaveFields = _TimesSink
+'''
+
+
+def app_run(st, cfg, dev, tmp):
+    """Phase 16's app run: ``InputFileBuilder`` writes and validates a
+    2-step case over box_mesh(nx=3); ``SimulatorRunner`` runs it in a child
+    ``sim_cli`` on ``dev``.  Returns (seconds, streamed lines, operation
+    save times, the child's device line)."""
+    from safeincave_torch.app import InputFileBuilder, SimulatorRunner
+    grid_dir = os.path.join(tmp, "app_grid")
+    os.makedirs(grid_dir, exist_ok=True)
+    st.mesh.write_msh(os.path.join(grid_dir, "geom.msh"),
+                      *st.mesh.box_mesh(nx=3, ny=3, nz=3))
+    out_dir = os.path.join(tmp, "app_out")
+    b = (InputFileBuilder()
+         .set_grid(grid_dir).set_output(out_dir)
+         .set_solver(type="KrylovSolver", method="cg",
+                     relative_tolerance=1e-12)
+         .set_body_force(gravity=0.0, density=2000.0, direction=2)
+         .set_time([0.0, HOUR, 2 * HOUR], theta=0.5)
+         .set_equilibrium(active=False)
+         .set_operation(active=True, dt_max=HOUR)
+         .set_elastic("spring", 102e9, 0.3)
+         .add_nonelastic("creep", "DislocationCreep",
+                         {"A": 1.9e-20, "Q": 51600, "n": 3.0, "T": 298.0})
+         .add_dirichlet("WEST", 0, [0.0, 0.0, 0.0])
+         .add_dirichlet("SOUTH", 1, [0.0, 0.0, 0.0])
+         .add_dirichlet("BOTTOM", 2, [0.0, 0.0, 0.0])
+         .add_neumann("TOP", 2, [4e6, 8e6, 8e6]))
+    errs = b.validate()
+    if errs:
+        raise AssertionError(f"app: the case does not validate: {errs}")
+    case = b.save(os.path.join(tmp, "app_case.json"))
+    saves = os.path.join(tmp, "app_saves.json")
+    old_env = {k: os.environ.get(k)
+               for k in ("PYTHONPATH", "SAFEINCAVE_SAVES_JSON")}
+    if not have_h5py():
+        site = os.path.join(tmp, "app_site")
+        os.makedirs(site, exist_ok=True)
+        with open(os.path.join(site, "sitecustomize.py"), "w") as f:
+            f.write(SINK_SITE)
+        os.environ["PYTHONPATH"] = os.pathsep.join(
+            p for p in (site, ROOT, old_env["PYTHONPATH"]) if p)
+        os.environ["SAFEINCAVE_SAVES_JSON"] = saves
+    lines = []
+    t0 = time.perf_counter()
+    try:
+        runner = SimulatorRunner(output_callback=lines.append,
+                                 device=dev.type)
+        runner.launch(case)
+        rc = runner.wait(timeout=600)
+    finally:
+        for k, v in old_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    secs = time.perf_counter() - t0
+    text = "".join(lines)
+    if rc != 0:
+        raise AssertionError(f"app: the runner's child exited {rc}:\n"
+                             f"{text[-3000:]}")
+    if have_h5py():
+        times, _, _, _ = st.PostProcessingTools.read_timeseries(
+            os.path.join(out_dir, "operation"), "u")
+        times = [float(t) for t in times]
+    else:
+        with open(saves) as f:
+            times = json.load(f)["operation"]
+    rows = cfg.screen_rows([ln.rstrip("\n") for ln in lines])
+    if len(rows) != 2:
+        raise AssertionError(f"app: {len(rows)} step rows streamed:\n"
+                             f"{text[-3000:]}")
+    if not np.allclose(times, [0.0, HOUR, 2 * HOUR], rtol=0, atol=1e-6):
+        raise AssertionError(f"app: saves at {times}")
+    device_line = next((ln.strip() for ln in lines if "device:" in ln), "")
+    if dev.type not in device_line:
+        raise AssertionError(f"app: the child ran on {device_line!r}")
+    return secs, lines, times, device_line
+
+
+def halo_phase(st, cfg, dev, card):
+    """Phase 16: the cavern600 main path over 8 parts in halo mode, the
+    box path in psum mode over 4 parts, the coupled pair under ``shard_tm``
+    over 4, each against its unsharded run in this process, then the app
+    layer's runner.  Returns {way: (ms/step, ms per f64 and f32 matvec,
+    launches per f64 and f32 matvec)}."""
+    import torch
+    from safeincave_torch.parallel import (make_device_mesh,
+                                           shard_equation, shard_tm)
+    dev = torch.device(dev)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    golden = np.load(GOLDEN.format("halo_cavern600"))
+    grid = cfg.cavern600_grid(st)
+
+    def timed_chunk(eq, t_first, n):
+        sync()
+        t0 = time.perf_counter()
+        rows = eq.solve_time_steps([t_first + k * HOUR for k in range(n)],
+                                   [HOUR] * n, tol=1e-8, maxiter=40)
+        sync()
+        if not (rows[:, 5] == 1).all():
+            raise AssertionError(f"halo: non-converged steps "
+                                 f"{rows[:, [0, 1, 5]].tolist()}")
+        return rows, time.perf_counter() - t0
+
+    # halo: cavern600 over 8 parts -------------------------------------- #
+    t0 = time.perf_counter()
+    eq = cfg.wire_bench(st, grid, precond="auto", device=dev)
+    band0 = eq.kernel.band
+    n = eq.n_elems
+    shard_equation(eq, make_device_mesh(8, device=dev), mode="halo")
+    plan = eq._halo.plan
+    if (plan.S, plan.H, plan.R) != (507, 163, 6) or eq.n_elems != 16152:
+        raise AssertionError(f"halo: plan S={plan.S} H={plan.H} R={plan.R}, "
+                             f"{eq.n_elems} elements")
+    if eq.kernel.band is not None or eq.kernel.dia is not None:
+        raise AssertionError("halo: a band or DIA operator on the sharded "
+                             "equation")
+    setup_s = time.perf_counter() - t0
+    cfg.elastic_init(eq)
+    P, apply_M = eq._get_precond()
+    if not (apply_M.__name__ == "apply_2l" and len(P) == 2
+            and tuple(P[0].shape) == (8 * plan.S, 3, 3)):
+        raise AssertionError("halo: the preconditioner is not "
+                             "halo_two_level")
+    u_el, el_krylov = eq.u.cpu().numpy(), eq.solver_stats[0]
+    rows_h3, secs_h3 = timed_chunk(eq, HOUR, 3)
+    u3, sig3 = eq.u.cpu().numpy(), eq.sig_v.cpu().numpy()[:n]
+
+    # the same 3 steps unsharded, then the 5-step chunks in turns ------- #
+    one = cfg.wire_bench(st, grid, precond="auto", device=dev)
+    cfg.elastic_init(one)
+    rows_u3, secs_u3 = timed_chunk(one, HOUR, 3)
+    u3_one, sig3_one = one.u.cpu().numpy(), one.sig_v.cpu().numpy()
+    rows_h5, secs_h5 = timed_chunk(eq, 4 * HOUR, 5)
+    rows_u5, secs_u5 = timed_chunk(one, 4 * HOUR, 5)
+    if band0 is not None and band0.launches:
+        raise AssertionError("halo: the band kernel launched on the "
+                             "sharded equation")
+    e_el = within("halo elastic u vs golden", u_el, golden["u_elastic"],
+                  1e-8)
+    e_u = within("halo u vs golden", u3, golden["u"], 1e-6)
+    e_s = within("halo sig_v vs golden", sig3, golden["sig_v"], 1e-6)
+    d_it = int(np.abs(rows_h3[:, 0] - golden["rows"][:, 0]).max())
+    if d_it > 1:
+        raise AssertionError(f"halo: fixed-point counts "
+                             f"{rows_h3[:, 0].tolist()} vs golden "
+                             f"{golden['rows'][:, 0].tolist()}")
+    d_u = allclose("halo u vs unsharded", u3, u3_one, 1e-8, 1e-13)
+    d_s = allclose("halo sig_v vs unsharded", sig3, sig3_one, 1e-8, 0.1)
+
+    # psum: the box path over 4 parts ----------------------------------- #
+    box = cfg.box17_grid(st)
+    box_eqs, dia0 = {}, None
+    for way in ("psum", "unsharded"):
+        beq = cfg.wire_bench(st, box, precond="auto", fp32_phase="auto",
+                             device=dev)
+        if way == "psum":
+            dia0 = beq.kernel.dia
+            shard_equation(beq, make_device_mesh(4, device=dev), mode="psum")
+            if dia0 is not None:
+                dia0.launches = 0
+        cfg.elastic_init(beq)
+        box_eqs[way] = beq
+    box_rows = {w: timed_chunk(beq, HOUR, 3) for w, beq in box_eqs.items()}
+    if dia0 is not None and dia0.launches:
+        raise AssertionError("psum: the DIA kernel launched on the sharded "
+                             "equation")
+    peq, beq1 = box_eqs["psum"], box_eqs["unsharded"]
+    nb = beq1.n_elems
+    d_pu = allclose("psum u vs unsharded", peq.u.cpu().numpy(),
+                    beq1.u.cpu().numpy(), 1e-8, 1e-13)
+    d_ps = allclose("psum sig_v vs unsharded",
+                    peq.sig_v.cpu().numpy()[:nb], beq1.sig_v.cpu().numpy(),
+                    1e-8, 0.1)
+
+    # coupled: shard_tm over 4 parts ------------------------------------ #
+    tm = {}
+    for way in ("shard_tm", "unsharded"):
+        teq, heat = cfg.wire_tm(st, grid, "Cavern", precond="auto",
+                                device=dev)
+        if way == "shard_tm":
+            shard_tm(teq, heat, make_device_mesh(4, device=dev))
+        cfg.tm_init(teq, heat)
+        sync()
+        t1 = time.perf_counter()
+        r = teq.solve_tm_time_steps(heat, [HOUR, 2 * HOUR], [HOUR] * 2,
+                                    tol=1e-6, maxiter=20)
+        sync()
+        if not (r[:, 5] == 1).all():
+            raise AssertionError(f"tm {way}: non-converged {r.tolist()}")
+        tm[way] = (r, time.perf_counter() - t1, teq.u.cpu().numpy(),
+                   heat.T.cpu().numpy())
+    d_T = allclose("shard_tm T vs unsharded", tm["shard_tm"][3],
+                   tm["unsharded"][3], 1e-10, 1e-8)
+    d_tu = allclose("shard_tm u vs unsharded", tm["shard_tm"][2],
+                    tm["unsharded"][2], 1e-8, 1e-13)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        app_s, lines, times, device_line = app_run(st, cfg, dev, tmp)
+
+    # launches per matvec, last: the profiler leaves a cost on every later
+    # launch of its process
+    halo = eq._halo
+    C = eq.mat.C
+    CT_l, CT_l32 = halo.ct_to_local(C), halo.ct_to_local(C.float())
+    x = halo.to_padded(torch.ones((grid.n_nodes, 3), dtype=torch.float64,
+                                  device=dev))
+    mp = halo.to_padded(one.bc.mask)
+    ukern = one.kernel
+    C1 = ukern.prep(one.mat.C)
+    u1 = torch.ones((grid.n_nodes, 3), dtype=torch.float64, device=dev)
+    band_op = (ukern.band.operator(ukern.band.pack_ct(C1.float()))
+               if ukern.band is not None else
+               (lambda v: ukern.matvec(C1.float(), v)))
+    pk, Cp = peq.kernel, peq.mat.C
+    ub = torch.ones((box.n_nodes, 3), dtype=torch.float64, device=dev)
+    calls = {
+        "halo": (lambda: halo.matvec_pad(CT_l, x, mp),
+                 lambda: halo.matvec_pad(CT_l32, x.float(), mp.float())),
+        "psum": (lambda: pk.matvec(Cp, ub),
+                 lambda: pk.matvec(Cp.float(), ub.float())),
+        "unsharded": (lambda: ukern.matvec(C1, u1),
+                      lambda: band_op(u1.float()))}
+    # ms per matvec: CUDA events over 100 calls, before the profiler runs
+    mv_ms = {way: tuple(cuda_ms(fn, n=100) if dev.type == "cuda" else None
+                        for fn in fns) for way, fns in calls.items()}
+    launches = {way: tuple(launches_per_call(fn, dev) for fn in fns)
+                for way, fns in calls.items()}
+
+    def lc(v):
+        return "not measured" if v is None else f"{v:.0f}"
+
+    def mc(v):
+        return "not measured" if v is None else f"{v:.3f} ms"
+
+    P1, _ = one._get_precond()
+    ways = (("halo", rows_h5, secs_h5, secs_h3,
+             plan.comm_volume_per_matvec(), "8 parts, halo_two_level"),
+            ("unsharded", rows_u5, secs_u5, secs_u3, 0,
+             f"{'dense' if len(P1) == 1 else 'two-level'} preconditioner, "
+             f"{'band kernel' if ukern.band is not None else 'cumsum'}"))
+    for way, rows, secs, secs3, recv, what in ways:
+        say("halo", f"{way} cavern600 ({what}; E={n}, N={grid.n_nodes}): "
+                    f"{1e3 * secs / len(rows):.1f} ms/step in the 5-step "
+                    f"chunk (the ways in turns; {1e3 * secs3 / 3:.1f} in "
+                    f"the first 3-step chunk), {rows[:, 0].mean():.2f} "
+                    f"fixed-point it/step, {rows[:, 2].mean():.1f} Krylov "
+                    f"it/step; per matvec f64 {mc(mv_ms[way][0])} in "
+                    f"{lc(launches[way][0])} launches, f32 "
+                    f"{mc(mv_ms[way][1])} in {lc(launches[way][1])} "
+                    f"(CUDA events, 100 calls; torch.profiler); rows "
+                    f"received per matvec {recv}; {card}")
+    say("halo", f"8 parts: S={plan.S}, H={plan.H}, R={plan.R}, round sizes "
+                f"{plan.round_sizes}, rows received per matvec "
+                f"{plan.comm_volume_per_matvec()} (true interface "
+                f"{plan.comm_rows_true()}), elements {n} -> {eq.n_elems}; "
+                f"plan and part tensors {setup_s:.2f} s; preconditioner "
+                f"halo_two_level (coarse_agg {eq.solver.coarse_agg}); "
+                f"elastic {el_krylov} Krylov it; no band or DIA launch on "
+                f"the sharded equation; vs JAX golden (8 virtual CPU "
+                f"devices): elastic u {e_el:.2e} (<=1e-8), 3-step u "
+                f"{e_u:.2e}, sig_v {e_s:.2e} (<=1e-6 max|ref|), fixed-point "
+                f"it {rows_h3[:, 0].astype(int).tolist()} vs "
+                f"{golden['rows'][:, 0].astype(int).tolist()}; vs the "
+                f"unsharded run: u {d_u:.2e}, sig_v {d_s:.2e} of max|ref| "
+                f"(rtol 1e-8, atol 1e-13 m / 0.1 Pa), its fixed-point it "
+                f"{rows_u3[:, 0].astype(int).tolist()}")
+    for way, (rows, secs) in box_rows.items():
+        beq = box_eqs[way]
+        sweep = "on" if beq.solver.fp32_enabled(beq.device) else "off"
+        what = ("4 parts, psum assembly" if way == "psum"
+                else "block-DIA kernel" if beq.kernel.dia is not None
+                else "cumsum operator")
+        dense = len(beq._get_precond()[0]) == 1
+        mv = (f"per matvec f64 {mc(mv_ms['psum'][0])} in "
+              f"{lc(launches['psum'][0])} launches, f32 "
+              f"{mc(mv_ms['psum'][1])} in {lc(launches['psum'][1])}"
+              if way == "psum" else "the DIA kernel: phase 3")
+        say("halo", f"box17 {way} ({what}, "
+                    f"{'dense' if dense else 'two-level'} preconditioner, "
+                    f"f32 sweep "
+                    f"{sweep}; E={box.n_elems}, N={box.n_nodes}): "
+                    f"{1e3 * secs / 3:.1f} ms/step in a 3-step chunk, "
+                    f"{rows[:, 0].mean():.2f} fixed-point it/step, "
+                    f"{rows[:, 2].mean():.1f} Krylov it/step; {mv}; rows "
+                    f"received per matvec "
+                    f"{box.n_nodes if way == 'psum' else 0}; {card}")
+    say("halo", f"psum vs unsharded box17: u {d_pu:.2e}, sig_v {d_ps:.2e} "
+                f"of max|ref| (rtol 1e-8, atol 1e-13 m / 0.1 Pa); no DIA "
+                f"launch on the sharded equation")
+    for way, (r, secs, _, _) in tm.items():
+        say("halo", f"tm {way} cavern600 (Robin wall"
+                    f"{', 4 parts' if way == 'shard_tm' else ''}): 2 fused "
+                    f"steps {1e3 * secs / 2:.1f} ms/step, "
+                    f"{r[:, 0].mean():.1f} heat CG it, {r[:, 2].mean():.2f} "
+                    f"fixed-point it, {r[:, 4].mean():.1f} Krylov it per "
+                    f"step; {card}")
+    say("halo", f"shard_tm vs unsharded: T {d_T:.2e} (rtol 1e-10, atol "
+                f"1e-8), u {d_tu:.2e} (rtol 1e-8) of max|ref|")
+    sink = "SaveFields (h5py)" if have_h5py() else "in memory (no h5py)"
+    say("halo", f"app: InputFileBuilder case (box_mesh nx=3, 2 steps) "
+                f"validated; SimulatorRunner's child sim_cli exit 0 in "
+                f"{app_s:.1f} s, {len(lines)} lines streamed, 2 step rows, "
+                f"'{device_line}', operation saves at {times} s; outputs "
+                f"{sink}")
+    return {"halo": (1e3 * secs_h5 / 5, *mv_ms["halo"],
+                     *launches["halo"]),
+            "unsharded": (1e3 * secs_u5 / 5, *mv_ms["unsharded"],
+                          *launches["unsharded"])}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tree", help="run phase 3 alone on the "
@@ -1469,7 +1876,7 @@ def main():
                     "stage records to RESULT; 'off' runs without the f32 "
                     "sweep")
     ap.add_argument("--phase", choices=("tm", "tm_box", "lag", "yearly",
-                                        "order", "point"),
+                                        "order", "point", "halo"),
                     help="after the build, run this phase alone (no kernel "
                     "JSON and no ok line)")
     args = ap.parse_args()
@@ -1531,7 +1938,9 @@ def main():
                    "lag": lambda: lag_phase(st, cfg),
                    "yearly": lambda: yearly_phase(st, cfg, tmp),
                    "order": lambda: order_phase(st, cfg),
-                   "point": lambda: point_phase(st, cfg, dev)}[args.phase](),
+                   "point": lambda: point_phase(st, cfg, dev),
+                   "halo": lambda: halo_phase(st, cfg, dev, card),
+                   }[args.phase](),
                   flush=True)
         print(card, flush=True)
         return
@@ -1657,6 +2066,8 @@ def main():
     # 14. node orders of the cavern mesh; 15. the point simulators --------- #
     order_phase(st, cfg)
     point_phase(st, cfg, dev)
+    # 16. the parallel layer and the app runner; last, as it profiles ----- #
+    halo_phase(st, cfg, dev, card)
 
     # launches of each path, each counted from 0 just before the path ran
     paths = {BAND["name"]: {"main": (launches, band_per_step),

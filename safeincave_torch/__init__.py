@@ -1,6 +1,6 @@
 """safeincave_torch - PyTorch/CUDA port of safeincave_tpu.
 
-The port goes slice by slice; five are in:
+The port goes slice by slice; six are in:
 
 1. the cavern mechanics main path: band-reordered tet meshes, Spring +
    Viscoelastic + DislocationCreep + ViscoplasticDesai, Dirichlet supports
@@ -30,7 +30,12 @@ The port goes slice by slice; five are in:
    reordering with the native preprocessing library, ``GridBoxRegions``,
    the cavern mesh generator with its catalog (``mesh/cavern_gen.py``,
    reached by ``find_grid``), and the material-point simulators with
-   ``calibrate`` on ``torch.autograd``.
+   ``calibrate`` on ``torch.autograd``;
+6. the parallel layer and the rest of the application layer:
+   ``parallel.shard_equation`` (owned-node halo exchange or a summed
+   assembly over D parts, all on one device) and ``parallel.shard_tm``, and
+   ``app`` (the case builder, the terminal editor, the subprocess runner,
+   the script runner and the Tk GUI).
 
 Module names follow ``safeincave_tpu`` so each counterpart is easy to find.
 Entry points run on the card unless given ``device="cpu"``.  The package

@@ -8,6 +8,11 @@ adds ``heat_T`` and ``heat_T_old``.  The port adds one key the JAX loader
 ignores: ``u_last_step``, the displacement the next step's Krylov initial
 guess extrapolates from, without which a resumed run starts its first solve
 from another guess and is not bitwise the straight run.
+
+Element arrays of a sharded equation (parallel/sharding.py pads them to a
+multiple of the part count) are saved at the true element count and padded
+again on loading, so a checkpoint moves between sharded and unsharded
+equations either way.
 """
 from __future__ import annotations
 
@@ -16,23 +21,26 @@ import os
 import numpy as np
 import torch
 
-from .utils import to_numpy as _np
+from .utils import pad_elem_array, to_numpy as _np, unpad_elems
 
 
 def save_checkpoint(path: str, eq, t_control=None, heat_eq=None,
                     extra: dict | None = None):
     """Serialize the full simulation state to ``path`` (.npz)."""
-    data = {"u": _np(eq.u), "sig_v": _np(eq.sig_v),
-            "eps_tot_v": _np(eq.eps_tot_v), "Temp": _np(eq.Temp),
-            "T0": _np(eq.T0)}
+    def unpad(x):
+        return unpad_elems(eq, x)
+
+    data = {"u": _np(eq.u), "sig_v": unpad(eq.sig_v),
+            "eps_tot_v": unpad(eq.eps_tot_v), "Temp": unpad(eq.Temp),
+            "T0": unpad(eq.T0)}
     u_last = getattr(eq, "_u_last_step", None)
     if u_last is not None:
         data["u_last_step"] = _np(u_last)
     for idx, e in enumerate(eq.mat.elems_ne):
         for key, val in e.state.items():
-            data[f"elem{idx}_{key}"] = _np(val)
+            data[f"elem{idx}_{key}"] = unpad(val)
         for key, val in e.params.items():
-            data[f"elemparam{idx}_{key}"] = _np(val)
+            data[f"elemparam{idx}_{key}"] = unpad(val)
     if t_control is not None:
         data["tc_t"] = np.asarray(t_control.t)
         data["tc_step"] = np.asarray(t_control.step_counter)
@@ -52,24 +60,35 @@ def load_checkpoint(path: str, eq, t_control=None, heat_eq=None) -> dict:
     structure.
 
     Floating arrays become float64 tensors on ``eq.device``; boolean state
-    stays boolean.  Without ``u_last_step`` (a JAX-package checkpoint) the
-    next step's initial guess starts from ``u``.  Returns the ``extra_*``
-    entries with the prefix stripped."""
-    def to(a):
+    stays boolean.  Element arrays are padded to a sharded equation's
+    element count as ``shard_equation`` pads them (zero stress and strain,
+    other arrays edge-replicated).  Without ``u_last_step`` (a JAX-package
+    checkpoint) the next step's initial guess starts from ``u``.  Returns
+    the ``extra_*`` entries with the prefix stripped."""
+    n_pad = eq.n_elems - getattr(eq, "n_elems_orig", eq.n_elems)
+
+    def to(a, mode=None):
+        """A host array as a tensor; an element array (``mode`` given)
+        padded to the equation's element count."""
         a = np.array(a)    # a writable copy
+        if mode and n_pad and a.ndim >= 1 and a.shape[0] == eq.n_elems_orig:
+            a = pad_elem_array(a, n_pad, mode)
         dtype = torch.bool if a.dtype == np.bool_ else torch.float64
         return torch.as_tensor(a, dtype=dtype, device=eq.device)
 
     with np.load(path) as z:
-        for key in ("u", "sig_v", "eps_tot_v", "Temp", "T0"):
-            setattr(eq, key, to(z[key]))
+        eq.u = to(z["u"])
+        for key in ("sig_v", "eps_tot_v"):
+            setattr(eq, key, to(z[key], "zero"))
+        for key in ("Temp", "T0"):
+            setattr(eq, key, to(z[key], "edge"))
         eq._u_last_step = to(z["u_last_step"]) if "u_last_step" in z \
             else None
         for idx, e in enumerate(eq.mat.elems_ne):
-            e.state = {k: to(z[f"elem{idx}_{k}"])
+            e.state = {k: to(z[f"elem{idx}_{k}"], "edge")
                        if f"elem{idx}_{k}" in z else v
                        for k, v in e.state.items()}
-            e.params = {k: to(z[f"elemparam{idx}_{k}"])
+            e.params = {k: to(z[f"elemparam{idx}_{k}"], "edge")
                         if f"elemparam{idx}_{k}" in z else v
                         for k, v in e.params.items()}
         if t_control is not None and "tc_t" in z:

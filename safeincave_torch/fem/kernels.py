@@ -67,6 +67,25 @@ class ScatterPlan:
         return ScatterPlan(as_t(perm), as_t(starts), as_t(ends))
 
 
+def element_stiffness(grad_N, vol, C) -> np.ndarray:
+    """Per-element 12x12 stiffness blocks (E, 4, 3, 4, 3), f64, host, of
+    the geometry ``grad_N`` (E, 4, 3), ``vol`` (E,) and tangents C
+    (E, 6, 6)."""
+    E3 = np.eye(3)
+    gi = np.asarray(grad_N)[:, :, None, :]
+    ei = E3[None, None, :, :]
+    xx = ei[..., 0] * gi[..., 0]
+    yy = ei[..., 1] * gi[..., 1]
+    zz = ei[..., 2] * gi[..., 2]
+    xy = 0.5 * (ei[..., 0] * gi[..., 1] + ei[..., 1] * gi[..., 0])
+    xz = 0.5 * (ei[..., 0] * gi[..., 2] + ei[..., 2] * gi[..., 0])
+    yz = 0.5 * (ei[..., 1] * gi[..., 2] + ei[..., 2] * gi[..., 1])
+    eps6 = np.stack([xx, yy, zz, xy, xz, yz], axis=-1)            # (E,4,3,6)
+    w = np.asarray([1., 1., 1., 2., 2., 2.])
+    sig6 = np.einsum("ekl,ebjl->ebjk", np.asarray(C), eps6)
+    return np.einsum("ebjk,eaik,k,e->eaibj", sig6, eps6, w, np.asarray(vol))
+
+
 def gather_u(u, conn):
     """u (N, 3) at element nodes, stacked (4, 3, E)."""
     return u[conn].permute(1, 2, 0)
@@ -238,20 +257,7 @@ class MomentumKernel:
     # -- host assembly for the preconditioners ---------------------------- #
     def element_stiffness(self, C) -> np.ndarray:
         """Per-element 12x12 stiffness blocks (E, 4, 3, 4, 3), f64, host."""
-        g = self.grad_N
-        E3 = np.eye(3)
-        gi = g[:, :, None, :]
-        ei = E3[None, None, :, :]
-        xx = ei[..., 0] * gi[..., 0]
-        yy = ei[..., 1] * gi[..., 1]
-        zz = ei[..., 2] * gi[..., 2]
-        xy = 0.5 * (ei[..., 0] * gi[..., 1] + ei[..., 1] * gi[..., 0])
-        xz = 0.5 * (ei[..., 0] * gi[..., 2] + ei[..., 2] * gi[..., 0])
-        yz = 0.5 * (ei[..., 1] * gi[..., 2] + ei[..., 2] * gi[..., 1])
-        eps6 = np.stack([xx, yy, zz, xy, xz, yz], axis=-1)        # (E,4,3,6)
-        w = np.asarray([1., 1., 1., 2., 2., 2.])
-        sig6 = np.einsum("ekl,ebjl->ebjk", np.asarray(C), eps6)
-        return np.einsum("ebjk,eaik,k,e->eaibj", sig6, eps6, w, self.vol)
+        return element_stiffness(self.grad_N, self.vol, C)
 
     def block_diagonal(self, C) -> np.ndarray:
         """Nodal 3x3 diagonal blocks of A(C) (N, 3, 3), f64, host."""
@@ -281,9 +287,10 @@ class NodeGather:
         return NodeGather(torch.as_tensor(idx, device=device),
                           int(np.size(keys)))
 
-    def sum(self, contrib: torch.Tensor) -> torch.Tensor:
-        """(n_bins,) sums of the flat contributions (n_contrib,)."""
-        flat = torch.cat([contrib.reshape(-1), contrib.new_zeros(1)])
+    def sum(self, contrib: torch.Tensor, tail=()) -> torch.Tensor:
+        """(n_bins, *tail) sums of the contributions (n_contrib, *tail)."""
+        flat = contrib.reshape((self.n_contrib, *tail))
+        flat = torch.cat([flat, flat.new_zeros((1, *tail))])
         return flat[self.idx].sum(1)
 
 

@@ -25,7 +25,10 @@ rollback net), never its convergence criterion.  The reference-style
 mutating methods (``compute_CT``, ``compute_eps_rhs``, ``compute_stress``,
 ``solve``) drive one linearized step by hand.
 
-Not ported yet (queued in ROADMAP.md): halo mode.
+An equation converted by ``parallel.shard_equation(..., mode="halo")``
+carries a :class:`~safeincave_torch.parallel.halo.HaloMomentumSolver` in
+``_halo``: its preconditioners and linear solves then run on the
+owner-blocked part layout.
 """
 from __future__ import annotations
 
@@ -121,10 +124,13 @@ class SolverSettings:
 # --------------------------------------------------------------------------- #
 def _block_jacobi_arrays(kern, C, mask):
     """Masked nodal 3x3 block inverses (N, 3, 3) f64 on the device."""
-    blk = kern.block_diagonal(C)
-    blk = blk * mask[:, :, None] * mask[:, None, :]
-    blk = blk + (1.0 - mask)[:, :, None] * np.eye(3)[None]
-    return inv3x3(torch.as_tensor(blk, device=kern.device))
+    blk = torch.as_tensor(kern.block_diagonal(C), dtype=F64,
+                          device=kern.device)
+    m = torch.as_tensor(mask, dtype=F64, device=kern.device)
+    blk = blk * m[:, :, None] * m[:, None, :]
+    blk = blk + (1.0 - m)[:, :, None] * torch.eye(3, dtype=F64,
+                                                  device=kern.device)[None]
+    return inv3x3(blk)
 
 
 def _blk_apply(inv, r):
@@ -133,20 +139,26 @@ def _blk_apply(inv, r):
     return (inv_t * r.T[None]).sum(1).T
 
 
-def _coarse_space(kern, C, mask, G):
-    """Dense coarse operator over aggregates of G consecutive node ids,
-    from the per-element stiffness with Dirichlet rows/cols masked, inverted
-    in f32 after scaling to O(1), diagonal regularization and
-    symmetrization (an unsymmetrized f32 inverse can turn the
-    preconditioner indefinite).  Returns (coarse_inv, n_agg, pad)."""
+def _coarse_space(kern, C, mask, G, agg_of_node=None):
+    """Dense coarse operator over aggregates of G consecutive node ids (or
+    over ``agg_of_node`` (n_nodes,), the aggregate of each node, for callers
+    whose restriction is a segment sum anyway: parallel/halo.py), from the
+    per-element stiffness with Dirichlet rows/cols masked, inverted in f32
+    after scaling to O(1), diagonal regularization and symmetrization (an
+    unsymmetrized f32 inverse can turn the preconditioner indefinite).
+    Returns (coarse_inv, n_agg, pad)."""
     n_nodes = kern.n_nodes
-    n_agg = -(-n_nodes // G)
+    if agg_of_node is None:
+        n_agg = -(-n_nodes // G)
+    else:
+        agg_of_node = np.asarray(agg_of_node, dtype=np.int64)
+        n_agg = int(agg_of_node.max()) + 1
     pad = n_agg * G - n_nodes
     conn = kern.conn_np
     Ke = kern.element_stiffness(C)
     mrows = mask[conn]                                            # (E,4,3)
     Ke = Ke * mrows[:, :, :, None, None] * mrows[:, None, None, :, :]
-    agg = conn // G
+    agg = conn // G if agg_of_node is None else agg_of_node[conn]
     pair = agg[:, :, None] * n_agg + agg[:, None, :]              # (E,4,4)
     flat = np.transpose(Ke, (0, 1, 3, 2, 4)).reshape(-1, 3, 3)
     Ac = np.zeros((n_agg * n_agg, 3, 3))
@@ -585,6 +597,7 @@ class LinearMomentum(LinearMomentumBase):
         self.eps_rhs_v = torch.zeros((self.n_elems, 6), dtype=F64,
                                      device=self.device)
         self._precond = None
+        self._halo = None         # set by parallel.shard_equation(mode="halo")
         self._reset_solvers()
         self.fp32_accepted = 0
         # fixed-point bookkeeping of the last step, beside krylov_total,
@@ -674,28 +687,54 @@ class LinearMomentum(LinearMomentumBase):
 
     # ------------------------------------------------------------------ #
     def _get_precond(self):
-        """(P, apply), built once per wiring from C and the Dirichlet mask."""
+        """(P, apply), built once per wiring from C and the Dirichlet mask.
+        In halo mode the arrays live in the padded part layout: "jacobi"
+        takes the halo block-Jacobi, every other setting the halo two-level
+        preconditioner over ``coarse_agg`` nodes per aggregate (never the
+        dense inverse)."""
         if self._precond is None:
             if not hasattr(self.bc, "mask"):
                 self.bc.update_dirichlet(0.0)
-            self._precond = build_preconditioner(
-                self.kernel, self.mat.C, self.bc.mask, self.solver)
+            if self._halo is not None:
+                from ..parallel.halo import halo_block_jacobi, halo_two_level
+                if self.solver.precond == "jacobi":
+                    self._precond = halo_block_jacobi(
+                        self._halo, self.mat.C, self.bc.mask)
+                else:
+                    self._precond = halo_two_level(
+                        self._halo, self.mat.C, self.bc.mask,
+                        G=self.solver.coarse_agg)
+            else:
+                self._precond = build_preconditioner(
+                    self.kernel, self.mat.C, self.bc.mask, self.solver)
         return self._precond
 
     def _get_solver(self):
         if self._solve_lin is None:
             _, apply_M = self._get_precond()
-            self._solve_lin = _make_masked_solver(
-                self.kernel, self.solver, apply_M,
-                zero_dirichlet=self.bc.all_zero_dirichlet)
+            zero_dir = self.bc.all_zero_dirichlet
+            if self._halo is not None:
+                from ..parallel.halo import make_halo_masked_solver
+                self._solve_lin = make_halo_masked_solver(
+                    self._halo, self.solver, apply_M, zero_dirichlet=zero_dir)
+            else:
+                self._solve_lin = _make_masked_solver(
+                    self.kernel, self.solver, apply_M,
+                    zero_dirichlet=zero_dir)
         return self._solve_lin
 
     def _get_solve32(self):
         if self._solve32 is None:
             _, apply_M = self._get_precond()
-            self._solve32 = _make_solve32(
-                self.kernel, self.solver, apply_M,
-                zero_dirichlet=self.bc.all_zero_dirichlet)
+            zero_dir = self.bc.all_zero_dirichlet
+            if self._halo is not None:
+                from ..parallel.halo import make_halo_solve32
+                self._solve32 = make_halo_solve32(
+                    self._halo, self.solver, apply_M, zero_dirichlet=zero_dir)
+            else:
+                self._solve32 = _make_solve32(
+                    self.kernel, self.solver, apply_M,
+                    zero_dirichlet=zero_dir)
         return self._solve32
 
     def _linear_solve(self, CT, b):

@@ -3,7 +3,8 @@
 ``numpy_state`` reads the state of a momentum equation of either package,
 and of a heat equation beside it (it only converts arrays with numpy, so it
 needs no JAX import), and ``load_numpy_state`` places such a state on the
-port's equations at their device and dtype.  Tests use the pair to start
+port's equations at their device and dtype.  Element arrays of a sharded
+equation are read at the true element count.  Tests use the pair to start
 both packages from the same state.
 """
 from __future__ import annotations
@@ -11,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .utils import to_numpy as _np
+from .utils import to_numpy, unpad_elems
 
 FIELDS = ("u", "sig_v", "eps_tot_v", "_u_last_step", "Temp", "T0")
 THERMAL = ("density", "cp", "k", "alpha_th")
@@ -23,6 +24,9 @@ def numpy_state(eq, heat=None) -> dict:
     element's state and parameters, each thermoelastic element's expansion
     coefficient, the material's thermal properties (those that are set) and,
     with ``heat``, its T and T_old."""
+    def _np(x):
+        return unpad_elems(eq, x)
+
     d = {k: _np(getattr(eq, k)) for k in FIELDS
          if getattr(eq, k, None) is not None}
     elems = eq.mat.elems_ne
@@ -32,7 +36,7 @@ def numpy_state(eq, heat=None) -> dict:
     d["thermal"] = {k: _np(getattr(eq.mat, k)) for k in THERMAL
                     if hasattr(eq.mat, k)}
     if heat is not None:
-        d["heat"] = {"T": _np(heat.T), "T_old": _np(heat.T_old)}
+        d["heat"] = {"T": to_numpy(heat.T), "T_old": to_numpy(heat.T_old)}
     return d
 
 

@@ -5,7 +5,8 @@ one ``{out}/{field}/{field}.h5`` + ``{field}.xdmf`` per registered field,
 the mesh written once, one dataset per kept save, the source ``.msh``
 copied to ``{out}/mesh/``.  Fields are looked up as attributes of the
 equation at save time and fetched to the host with
-``.detach().cpu().numpy()``.  ``h5py`` is imported when the files are
+``.detach().cpu().numpy()``; element fields of a sharded equation lose
+their padding there.  ``h5py`` is imported when the files are
 opened (:meth:`SaveFields.initialize`), so the solver never needs it.
 """
 from __future__ import annotations
@@ -15,7 +16,7 @@ import shutil
 
 import numpy as np
 
-from ..utils import to_numpy
+from ..utils import unpad_elems
 
 
 def _field_layout(arr, n_nodes, n_elems):
@@ -78,7 +79,7 @@ class SaveFields:
             self._times[field_name] = []
 
     def _get_field(self, field_name):
-        return to_numpy(getattr(self.eq, field_name))
+        return unpad_elems(self.eq, getattr(self.eq, field_name))
 
     def calls_until_next_keep(self) -> int:
         """How many ``save_fields`` calls until one actually writes (>= 1):

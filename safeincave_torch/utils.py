@@ -36,6 +36,36 @@ def to_numpy(x) -> np.ndarray:
     return np.asarray(x)
 
 
+def pad_elem_array(arr, n_pad: int, mode: str = "edge"):
+    """``arr`` (a tensor or a numpy array) with ``n_pad`` rows appended on
+    its leading (element) axis: copies of the last row (``"edge"``) or
+    zeros (``"zero"``).  Edge padding keeps padded cells finite: a NaN in
+    a padded cell would poison every sum over the cells, as 0 * NaN = NaN."""
+    if n_pad == 0:
+        return arr
+    if isinstance(arr, torch.Tensor):
+        tail = (arr[-1:].expand(n_pad, *arr.shape[1:]) if mode == "edge"
+                else arr.new_zeros((n_pad, *arr.shape[1:])))
+        return torch.cat([arr, tail])
+    arr = np.asarray(arr)
+    width = [(0, n_pad)] + [(0, 0)] * (arr.ndim - 1)
+    if mode == "edge":
+        return np.pad(arr, width, mode="edge")
+    return np.pad(arr, width, constant_values=0)
+
+
+def unpad_elems(eq, x) -> np.ndarray:
+    """``x`` as a host numpy array, with the element padding of a sharded
+    equation (parallel/sharding.py pads ``n_elems`` to a multiple of the
+    part count; ``n_elems_orig`` keeps the true count) sliced off."""
+    a = to_numpy(x)
+    n_pad = getattr(eq, "n_elems", None)
+    n_true = getattr(eq, "n_elems_orig", n_pad)
+    if a.ndim >= 1 and n_pad is not None and a.shape[0] == n_pad > n_true:
+        return a[:n_true]
+    return a
+
+
 def read_json(file_name: str) -> dict:
     """Read a JSON file into a dict."""
     with open(file_name, "r") as j_file:

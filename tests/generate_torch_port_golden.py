@@ -48,6 +48,13 @@ tol 1e-8.
   the CSV year at 6 h with saves every 8 steps and a checkpoint at step
   16; per stage (``eq_`` / ``op_``) the step table, ``u``, ``sig_v`` (and
   ``q_elems`` in operation);
+- ``tests/golden/torch_port_halo_cavern600.npz``: the cavern600
+  configuration above converted by ``shard_equation(eq,
+  make_device_mesh(8), mode="halo")`` over 8 virtual CPU devices (the
+  halo two-level preconditioner, ``coarse_agg=8``): ``u_elastic``, and
+  ``u``, ``sig_v`` (the first ``n_elems_orig`` rows: the element padding
+  sliced off) and ``rows`` after 3 steps, as ``torch_port_cavern600.npz``
+  holds them;
 - ``tests/golden/torch_port_point.npz``: calibrate_creep.py's fit (300
   Adam steps: fitted ``A``, ``n`` and the loss history) and one
   ``TriaxialSimulator.run_compression`` of calibrate_triaxial.py's twin at
@@ -68,6 +75,12 @@ import sys
 import tempfile
 
 os.environ["JAX_PLATFORMS"] = "cpu"
+# 8 virtual CPU devices for the halo case, set before JAX is imported (as
+# tests/conftest.py sets them)
+if "xla_force_host_platform_device_count" not in os.environ.get("XLA_FLAGS",
+                                                                ""):
+    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") + " --xla_"
+                               "force_host_platform_device_count=8").strip()
 
 import numpy as np  # noqa: E402
 
@@ -94,6 +107,13 @@ def _box17():
     return eq
 
 
+def _halo_cavern600():
+    from safeincave_tpu.parallel import make_device_mesh, shard_equation
+    eq = _cavern600()
+    shard_equation(eq, make_device_mesh(8), mode="halo")
+    return eq
+
+
 def write_steps(make):
     eq = make()
     cfg.elastic_init(eq)
@@ -103,7 +123,9 @@ def write_steps(make):
     rows = eq.solve_time_steps([(k + 1) * dt for k in range(N_STEPS)],
                                [dt] * N_STEPS, tol=1e-8, maxiter=40)
     return dict(u_elastic=u_elastic, elastic_krylov=elastic_krylov,
-                u=np.asarray(eq.u), sig_v=np.asarray(eq.sig_v),
+                u=np.asarray(eq.u),
+                sig_v=np.asarray(eq.sig_v)[:getattr(eq, "n_elems_orig",
+                                                    eq.n_elems)],
                 rows=np.asarray(rows))
 
 
@@ -258,7 +280,8 @@ CASES = {"cavern600": lambda tmp: write_steps(_cavern600),
              {"lag_tangent": True}),
          "adaptive_cavern600": lambda tmp: flagged_cavern600(
              {"adaptive_rtol": True}),
-         "yearly_1200": yearly_1200, "point": point}
+         "yearly_1200": yearly_1200, "point": point,
+         "halo_cavern600": lambda tmp: write_steps(_halo_cavern600)}
 
 
 def write(name):

@@ -660,3 +660,51 @@ def triaxial_twin(pkg, cohesion, friction, times, ones, device=None):
     eps0 = (Ci[:, 2, 0] + Ci[:, 2, 1] + Ci[:, 2, 2]) * TRIAX_SR
     ez = eps0[None, :] - 1e-5 * np.asarray(times)[:, None]
     return sim.run_compression(TRIAX_SR, ez, times), mat
+
+
+# -- the element-sharding cases (tests/test_sharding.py) -------------------- #
+def sharding_box(pkg, nx=3, device=None, fp32_phase=False):
+    """tests/test_sharding.py's ``_build`` equation for either package: a
+    cube, Spring + dislocation creep, rollers on three faces, 10 MPa on TOP,
+    CG at rtol 1e-13."""
+    dev = on(pkg, device)
+    grid = pkg.GridBox(nx=nx, ny=nx, nz=nx)
+    eq = pkg.LinearMomentum(grid, theta=0.5, **dev)
+    eq.set_solver(pkg.SolverSettings(method="cg", rtol=1e-13, max_it=500,
+                                     fp32_phase=fp32_phase))
+    n = eq.n_elems
+    one = np.ones(n)
+    mat = pkg.Material(n, **dev)
+    mat.set_density(2000.0 * one)
+    mat.add_to_elastic(pkg.Spring(102e9 * one, 0.3 * one))
+    mat.add_to_non_elastic(pkg.DislocationCreep(1.9e-20 * one, 51600 * one,
+                                                3.0 * one, **dev))
+    eq.set_material(mat)
+    eq.set_T0(298.0 * one)
+    eq.set_T(298.0 * one)
+    eq.build_body_force([0.0, 0.0, 0.0])
+    momBC = pkg.MomentumBC
+    bc = momBC.BcHandler(eq)
+    tv = [0.0, 1e9]
+    for nm, comp in (("WEST", 0), ("SOUTH", 1), ("BOTTOM", 2)):
+        bc.add_boundary_condition(momBC.DirichletBC(nm, comp, [0., 0.], tv))
+    bc.add_boundary_condition(momBC.NeumannBC("TOP", 2, 0.0, 0.0,
+                                              [10 * MPa, 10 * MPa], tv,
+                                              g=0.0))
+    eq.set_boundary_conditions(bc)
+    return eq
+
+
+def run_sharding_steps(eq, n_steps=2, dt=HOUR):
+    """tests/test_sharding.py's ``_run_steps``: the elastic response, then
+    ``n_steps`` per-step fixed points with the reference-style commit calls;
+    returns (u, sig_v, rows of [iterations, error])."""
+    elastic_init(eq)
+    rows = []
+    for k in range(n_steps):
+        t = (k + 1) * dt
+        rows.append(eq.solve_time_step(t, dt, tol=1e-8, maxiter=40))
+        eq.update_internal_variables()
+        eq.update_eps_ne_rate_old()
+        eq.update_eps_ne_old(eq.sig_v, eq._last_sv_k, dt)
+    return as_np(eq.u), as_np(eq.sig_v), np.asarray(rows, dtype=float)
