@@ -1,4 +1,5 @@
-"""Smoke run of the PyTorch/CUDA port (safeincave_torch) on one GPU.
+"""Smoke run of the PyTorch/CUDA port (safeincave_torch) on one GPU, and
+of its parallel layer on four.
 
     python3 chip_smoke.py
 
@@ -158,7 +159,8 @@ Phases, one line each; any failure raises and the exit code is non-zero:
              a cost on every later launch of its process).  The cavern600
              main path (phase 4's configuration, sweep off) converted by
              ``shard_equation(eq, make_device_mesh(8), mode="halo")``: all 8
-             parts on the card, S=507, H=163, R=6 checked, the
+             parts stacked on the card in this process (no process
+             group), S=507, H=163, R=6 checked, the
              ``halo_two_level`` preconditioner, no band or DIA launch on
              the sharded equation; elastic response, a 3-step chunk, then a
              5-step chunk in turns with the unsharded run of the same
@@ -182,6 +184,36 @@ Phases, one line each; any failure raises and the exit code is non-zero:
 
 Phase 9 runs its case twice, with the f32 sweep as "auto" selects it and
 with ``fp32_phase=False``, and prints both lines.
+
+    python3 chip_smoke.py --phase cards
+
+needs 4 visible cards (it exits non-zero and says so with fewer) and runs
+the parallel layer with one rank per card: ``parallel.launch`` spawns 4
+ranks over NCCL (group timeout 600 s, launch timeout 840 s: a hang fails
+the phase), and each runs the ways of ``CARD_WAYS``:
+
+    (a) cavern600 halo, D=8 parts on W=4 ranks, against
+        tests/golden/torch_port_halo_cavern600.npz as phase 16 holds it
+        (elastic u 1e-8 relative; 3-step u and sig_v 1e-6 max|ref|;
+        fixed-point counts +-1);
+    (b) cavern600 halo, D=4 on W=4;  (c) box17 psum, D=4 on W=4 (dense
+        preconditioner, f32 sweep "auto");  (d) ``shard_tm`` of ``wire_tm``
+        on cavern600, D=4 on W=4, 2 fused steps;  (e) the 38k-tet
+        cavern_interlayer_1200 mesh (band order, the bench material and
+        loads) halo, D=4 on W=4, one fused step.
+
+Every way is held against the stacked run of the same D on rank 0's card
+(``make_device_mesh(D, stacked=True)``), in turns within the call: after the
+warm-up chunk and after the timed chunks, u, sig_v (and T) within rtol
+1e-10 (atol 1e-10 max|ref|), fixed-point counts equal, and u the same bits
+on every rank.  Per way: ms/step (median of 3 chunks after the warm-up
+chunk, the stacked run in turns), fixed-point and Krylov iterations per
+step, ms per f64 and f32 matvec (CUDA events, 50 calls, every rank in
+step), the bytes and inter-rank rounds of one f64 matvec on rank 0, the
+rows each rank sends per matvec, peak memory per card; and ms per
+all-reduce of one f64 and per inter-rank round (60 x 3 f64 rows with one
+peer), CUDA events over 200 calls, at the start and the end; each line with
+every card's name and power limit.  No ``ok`` line.
 
 The last lines are the kernel JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  There is no CPU fallback: without a CUDA
@@ -1705,6 +1737,18 @@ def halo_phase(st, cfg, dev, card):
     d_u = allclose("halo u vs unsharded", u3, u3_one, 1e-8, 1e-13)
     d_s = allclose("halo sig_v vs unsharded", sig3, sig3_one, 1e-8, 0.1)
 
+    # the same 8 parts on a process group of one rank (NCCL), in a child
+    from safeincave_torch.parallel import launch
+    t_w1 = time.perf_counter()
+    (w1,) = launch(halo_rank, 1, "cuda", args=(3,), timeout=600,
+                   group_timeout=300)
+    w1_s = time.perf_counter() - t_w1
+    for key, stacked in (("u_elastic", u_el), ("rows", rows_h3), ("u", u3),
+                         ("sig", sig3)):
+        if not np.array_equal(w1[key], stacked):
+            raise AssertionError(f"halo: the world-size-1 NCCL run's {key} "
+                                 f"differs from the stacked run")
+
     # psum: the box path over 4 parts ----------------------------------- #
     box = cfg.box17_grid(st)
     box_eqs, dia0 = {}, None
@@ -1842,6 +1886,13 @@ def halo_phase(st, cfg, dev, card):
                     f"{rows[:, 2].mean():.1f} Krylov it/step; {mv}; rows "
                     f"received per matvec "
                     f"{box.n_nodes if way == 'psum' else 0}; {card}")
+    say("halo", f"world-size-1 NCCL run (init_parts / launch, a child "
+                f"process): elastic u, 3-step u, sig_v and step rows equal "
+                f"to the stacked 8-part run bit for bit; "
+                f"{w1['counts']['allreduce']} all-reduces, "
+                f"{w1['counts']['broadcast']} broadcast, "
+                f"{w1['counts']['rounds']} exchange rounds; the child "
+                f"{w1_s:.1f} s")
     say("halo", f"psum vs unsharded box17: u {d_pu:.2e}, sig_v {d_ps:.2e} "
                 f"of max|ref| (rtol 1e-8, atol 1e-13 m / 0.1 Pa); no DIA "
                 f"launch on the sharded equation")
@@ -1866,6 +1917,322 @@ def halo_phase(st, cfg, dev, card):
                           *launches["unsharded"])}
 
 
+def halo_rank(comm, n_steps):
+    """Phase 16's halo case on a process group (run by ``launch`` in a
+    child, this rank on its card): cavern600 as phase 4 wires it, 8 parts
+    by ``shard_equation(eq, make_device_mesh(8), mode="halo")``, elastic
+    response and ``n_steps`` fused steps.  Returns the fields (sig_v
+    unpadded and gathered), the step rows and the collectives issued."""
+    import torch
+    import safeincave_torch as st
+    import torch_port_configs as cfg
+    from safeincave_torch.parallel import make_device_mesh, shard_equation
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    eq = cfg.wire_bench(st, cfg.cavern600_grid(st), precond="auto",
+                        device=comm.device)
+    shard_equation(eq, make_device_mesh(8), mode="halo")
+    cfg.elastic_init(eq)
+    u_el = eq.u.cpu().numpy()
+    rows = eq.solve_time_steps([(k + 1) * HOUR for k in range(n_steps)],
+                               [HOUR] * n_steps, tol=1e-8, maxiter=40)
+    return {"u_elastic": u_el, "rows": rows, "u": eq.u.cpu().numpy(),
+            "sig": st.utils.unpad_elems(eq, eq.sig_v),
+            "counts": dict(comm.counts)}
+
+
+# the ways of --phase cards: (name, mesh, mode, parts, warm-up steps, steps
+# per timed chunk)
+CARD_WAYS = (("a", "cavern600", "halo", 8, 3, 2),
+             ("b", "cavern600", "halo", 4, 3, 2),
+             ("c", "box17", "psum", 4, 3, 2),
+             ("d", "cavern600", "tm", 4, 2, 2),
+             ("e", "cavern_interlayer_1200", "halo", 4, 1, 1))
+CARD_CHUNKS = 3          # timed chunks per way, after the warm-up chunk
+CARD_RTOL = 1e-10        # fields against the stacked run
+
+
+def card_way(comm, st, cfg, way):
+    """One way of ``--phase cards`` on every rank: the distributed run (D
+    parts over the ranks) and, on rank 0 in turns, the stacked run of the
+    same D on rank 0's card.  Returns rank 0's record (the other ranks'
+    holds their peak memory and the hash of their u)."""
+    import gc
+    import hashlib
+    import torch
+    from safeincave_torch.parallel import (make_device_mesh,
+                                           shard_equation, shard_tm)
+    name, mesh_name, mode, D, n_warm, n_chunk = way
+    dev, root = comm.device, comm.rank == 0
+    grid = {"cavern600": cfg.cavern600_grid,
+            "box17": cfg.box17_grid,
+            "cavern_interlayer_1200": cfg.yearly_grid}[mesh_name](st)
+
+    def build(stacked):
+        mesh = make_device_mesh(D, device=dev, stacked=stacked)
+        if mode == "tm":
+            eq, heat = cfg.wire_tm(st, grid, "Cavern", precond="auto",
+                                   device=dev)
+            shard_tm(eq, heat, mesh)
+            cfg.tm_init(eq, heat)
+            return eq, heat
+        eq = cfg.wire_bench(st, grid, precond="auto",
+                            fp32_phase="auto" if mode == "psum" else False,
+                            device=dev)
+        shard_equation(eq, mesh, mode=mode)
+        cfg.elastic_init(eq)
+        return eq, None
+
+    def chunk(eq, heat, t0, n):
+        ts, dts = [t0 + k * HOUR for k in range(n)], [HOUR] * n
+        torch.cuda.synchronize(dev)
+        tic = time.perf_counter()
+        if heat is None:
+            rows = eq.solve_time_steps(ts, dts, tol=1e-8, maxiter=40)
+            it, kry, conv = rows[:, 0], rows[:, 2], rows[:, 5]
+        else:
+            rows = eq.solve_tm_time_steps(heat, ts, dts, tol=1e-6,
+                                          maxiter=20)
+            it, kry, conv = rows[:, 2], rows[:, 4], rows[:, 5]
+        torch.cuda.synchronize(dev)
+        secs = time.perf_counter() - tic
+        if not (conv == 1).all():
+            raise AssertionError(f"cards {name}: non-converged steps "
+                                 f"{rows.tolist()}")
+        return np.stack([it, kry], 1), secs
+
+    def state(eq, heat):
+        out = {"u": eq.u.cpu().numpy(),
+               "sig": st.utils.unpad_elems(eq, eq.sig_v)}
+        if heat is not None:
+            out["T"] = heat.T.cpu().numpy()
+        return out
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    tic = time.perf_counter()
+    deq, dheat = build(False)
+    torch.cuda.synchronize(dev)
+    setup_s = time.perf_counter() - tic
+    u_el = deq.u.cpu().numpy()
+    warm, _ = chunk(deq, dheat, HOUR, n_warm)
+    d_warm = state(deq, dheat)
+    peak = torch.cuda.max_memory_allocated(dev)
+    rec = {"peak": peak, "setup_s": setup_s, "warm": warm,
+           "n_nodes": grid.n_nodes,
+           "u_hash": hashlib.sha1(d_warm["u"].tobytes()).hexdigest()}
+    if root:
+        seq, sheat = build(True)
+        s_warm, _ = chunk(seq, sheat, HOUR, n_warm)
+        rec.update(s_u_el=seq.u.cpu().numpy(), u_el=u_el, s_warmrows=s_warm,
+                   d_warm=d_warm, s_warm=state(seq, sheat))
+    comm.barrier()
+    dist_rows, dist_s, st_rows, st_s = [], [], [], []
+    t = (n_warm + 1) * HOUR
+    for _ in range(CARD_CHUNKS):
+        r, secs = chunk(deq, dheat, t, n_chunk)
+        dist_rows.append(r)
+        dist_s.append(secs)
+        comm.barrier()
+        if root:
+            r, secs = chunk(seq, sheat, t, n_chunk)
+            st_rows.append(r)
+            st_s.append(secs)
+        comm.barrier()
+        t += n_chunk * HOUR
+    d_end = state(deq, dheat)
+    rec["end_hash"] = hashlib.sha1(d_end["u"].tobytes()).hexdigest()
+    if root:
+        rec.update(d_end=d_end, s_end=state(seq, sheat),
+                   dist_rows=np.concatenate(dist_rows),
+                   st_rows=np.concatenate(st_rows),
+                   dist_ms=[1e3 * x / n_chunk for x in dist_s],
+                   st_ms=[1e3 * x / n_chunk for x in st_s])
+
+    # per matvec: ms (CUDA events over 50 calls, every rank in step), and
+    # the bytes this rank sent
+    F64 = torch.float64
+    if mode == "psum":
+        kern, C = deq.kernel, deq.mat.C
+        ub = torch.ones((grid.n_nodes, 3), dtype=F64, device=dev)
+        mv = (lambda: kern.matvec(C, ub),
+              lambda: kern.matvec(C.float(), ub.float()))
+    else:
+        halo = deq._halo
+        C = deq.mat.C
+        CT_l = halo.ct_to_local(C)
+        CT_l32 = CT_l.float()
+        x = halo.to_padded(torch.ones((grid.n_nodes, 3), dtype=F64,
+                                      device=dev))
+        mp = halo.to_padded(deq.bc.mask)
+        mv = (lambda: halo.matvec_pad(CT_l, x, mp),
+              lambda: halo.matvec_pad(CT_l32, x.float(), mp.float()))
+    rec["mv_ms"] = [cuda_ms(fn, n=50) for fn in mv]
+    comm.reset_counts()
+    mv[0]()
+    rec["mv_counts"] = dict(comm.counts)
+    comm.barrier()
+    if root:
+        if mode == "psum":
+            sk, sC = seq.kernel, seq.mat.C
+            smv = (lambda: sk.matvec(sC, ub),
+                   lambda: sk.matvec(sC.float(), ub.float()))
+        else:
+            sh = seq._halo
+            sCT = sh.ct_to_local(seq.mat.C)
+            sx = sh.to_padded(torch.ones((grid.n_nodes, 3), dtype=F64,
+                                         device=dev))
+            smp = sh.to_padded(seq.bc.mask)
+            smv = (lambda: sh.matvec_pad(sCT, sx, smp),
+                   lambda: sh.matvec_pad(sCT.float(), sx.float(),
+                                         smp.float()))
+        rec["st_mv_ms"] = [cuda_ms(fn, n=50) for fn in smv]
+    comm.barrier()
+    if mode != "psum":
+        rec["rows_sent"] = deq._halo.rows_sent_per_matvec()
+        rec["plan"] = (deq._halo.S, deq._halo.H, deq._halo.plan.R)
+    # the equations hold reference cycles (an equation and its boundary
+    # handler): collect them, so the next way's peak is its own
+    del deq, dheat
+    if root:
+        del seq, sheat
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def card_comm_times(comm):
+    """ms per all-reduce of one f64 (a Krylov dot) and per inter-rank
+    round: one ``exchange`` of 60 x 3 f64 rows (cavern600's largest round)
+    with one peer, ranks paired (0, 1), (2, 3); CUDA events over 200
+    calls, every rank in step."""
+    import torch
+    dev = comm.device
+    x = torch.zeros(1, dtype=torch.float64, device=dev)
+    ar = cuda_ms(lambda: comm.allreduce_sum(x), n=200)
+    peer = comm.rank ^ 1
+    rows = torch.ones((60, 3), dtype=torch.float64, device=dev)
+    ex = cuda_ms(lambda: comm.exchange([(peer, rows)],
+                                       [(peer, (60, 3), rows.dtype)]), n=200)
+    return ar, ex
+
+
+def cards_rank(comm):
+    """Every way of ``--phase cards`` on this rank."""
+    import torch
+    import safeincave_torch as st
+    import torch_port_configs as cfg
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"comm_ms": card_comm_times(comm),
+           "card": torch.cuda.get_device_name(comm.device)}
+    for way in CARD_WAYS:
+        out[way[0]] = card_way(comm, st, cfg, way)
+    out["comm_ms_end"] = card_comm_times(comm)
+    return out
+
+
+def cards_phase(st, cfg):
+    """``--phase cards``: one rank per card over NCCL, every way of
+    CARD_WAYS against its stacked run on rank 0's card; cavern600 in 8
+    parts against the JAX golden too."""
+    import torch
+    from safeincave_torch.parallel import launch
+    n_cards = torch.cuda.device_count()
+    if n_cards < 4:
+        raise SystemExit(f"chip_smoke --phase cards: needs 4 visible cards, "
+                         f"{n_cards} visible")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=index,name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    cards = smi.stdout.strip().splitlines()
+    for line in cards:
+        say("cards", f"card {line}")
+    tic = time.perf_counter()
+    ranks = launch(cards_rank, 4, "cuda", timeout=840, group_timeout=600)
+    say("cards", f"4 ranks (NCCL, one per card) ran every way in "
+                 f"{time.perf_counter() - tic:.1f} s")
+    r0 = ranks[0]
+    golden = np.load(GOLDEN.format("halo_cavern600"))
+    where = "; ".join(cards)
+    for name, mesh_name, mode, D, n_warm, n_chunk in CARD_WAYS:
+        rec = r0[name]
+        tag = f"cards {name}"
+        for key in ("u_hash", "end_hash"):
+            if len({r[name][key] for r in ranks}) != 1:
+                raise AssertionError(f"{tag}: u differs between the ranks")
+        errs = {}
+        for when in ("warm", "end"):
+            got, ref = rec[f"d_{when}"], rec[f"s_{when}"]
+            for f in got:
+                errs[f"{f} {when}"] = allclose(
+                    f"{tag} {f} ({when}) vs stacked", got[f], ref[f],
+                    CARD_RTOL, CARD_RTOL * np.abs(ref[f]).max())
+        fp = (rec["warm"][:, 0], rec["s_warmrows"][:, 0],
+              rec["dist_rows"][:, 0], rec["st_rows"][:, 0])
+        if not (np.array_equal(fp[0], fp[1]) and np.array_equal(fp[2],
+                                                                fp[3])):
+            raise AssertionError(f"{tag}: fixed-point counts {fp}")
+        if name == "a":
+            e_el = within(f"{tag} elastic u vs golden", rec["u_el"],
+                          golden["u_elastic"], 1e-8)
+            e_u = within(f"{tag} u vs golden", rec["d_warm"]["u"],
+                         golden["u"], 1e-6)
+            e_s = within(f"{tag} sig_v vs golden", rec["d_warm"]["sig"],
+                         golden["sig_v"], 1e-6)
+            d_it = np.abs(rec["warm"][:, 0] - golden["rows"][:, 0]).max()
+            if d_it > 1:
+                raise AssertionError(f"{tag}: fixed-point counts "
+                                     f"{rec['warm'][:, 0]} vs golden")
+            say("cards", f"a vs JAX golden (8 virtual CPU devices): elastic "
+                         f"u {e_el:.2e} (<=1e-8), 3-step u {e_u:.2e}, sig_v "
+                         f"{e_s:.2e} (<=1e-6 max|ref|), fixed-point it "
+                         f"{rec['warm'][:, 0].astype(int).tolist()} vs "
+                         f"{golden['rows'][:, 0].astype(int).tolist()}")
+        dr, sr = rec["dist_rows"], rec["st_rows"]
+        peaks = ", ".join(f"{r[name]['peak'] / 2**30:.2f}"
+                          for r in ranks)
+        counts = rec["mv_counts"]
+        comm_what = (f"plan S={rec['plan'][0]} H={rec['plan'][1]} "
+                     f"R={rec['plan'][2]}; rank 0 sends "
+                     f"{counts['bytes_sent']} bytes per f64 matvec in "
+                     f"{counts['rounds']} inter-rank rounds (rows per "
+                     f"matvec, forward and reverse, by rank: "
+                     f"{[r[name]['rows_sent'] for r in ranks]})"
+                     if mode != "psum" else
+                     f"one all-reduce of the {rec['n_nodes']} x 3 nodal "
+                     f"vector per matvec "
+                     f"({counts['allreduce']} all-reduce)")
+        say("cards", f"{name}: {mesh_name} {mode}, D={D} on W=4: "
+                     f"{np.median(rec['dist_ms']):.1f} ms/step (median of "
+                     f"{CARD_CHUNKS} chunks of {n_chunk} after a "
+                     f"{n_warm}-step warm-up; "
+                     f"{', '.join(f'{x:.1f}' for x in rec['dist_ms'])}), "
+                     f"stacked on one card "
+                     f"{np.median(rec['st_ms']):.1f} "
+                     f"({', '.join(f'{x:.1f}' for x in rec['st_ms'])}), "
+                     f"in turns; fixed-point it/step {dr[:, 0].mean():.2f} "
+                     f"(stacked {sr[:, 0].mean():.2f}), Krylov it/step "
+                     f"{dr[:, 1].mean():.1f} (stacked {sr[:, 1].mean():.1f}); "
+                     f"ms per matvec f64 {rec['mv_ms'][0]:.3f}, f32 "
+                     f"{rec['mv_ms'][1]:.3f} (stacked "
+                     f"{rec['st_mv_ms'][0]:.3f}, {rec['st_mv_ms'][1]:.3f}; "
+                     f"CUDA events, 50 calls); {comm_what}; peak memory per "
+                     f"card {peaks} GiB (rank 0 before its stacked run); "
+                     f"setup {rec['setup_s']:.1f} s; vs stacked "
+                     + ", ".join(f"{k} {v:.1e}" for k, v in errs.items())
+                     + f" of max|ref| (rtol {CARD_RTOL}); fixed-point counts "
+                     f"equal; u the same bits on every rank; {where}")
+    for key in ("comm_ms", "comm_ms_end"):
+        ar = [r[key][0] for r in ranks]
+        ex = [r[key][1] for r in ranks]
+        say("cards", f"{'first' if key == 'comm_ms' else 'last'}: ms per "
+                     f"all-reduce of one f64 by rank "
+                     f"{', '.join(f'{x:.4f}' for x in ar)}; ms per "
+                     f"inter-rank round (60 x 3 f64 rows, one peer) "
+                     f"{', '.join(f'{x:.4f}' for x in ex)} (CUDA events, "
+                     f"200 calls); {where}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tree", help="run phase 3 alone on the "
@@ -1876,9 +2243,9 @@ def main():
                     "stage records to RESULT; 'off' runs without the f32 "
                     "sweep")
     ap.add_argument("--phase", choices=("tm", "tm_box", "lag", "yearly",
-                                        "order", "point", "halo"),
+                                        "order", "point", "halo", "cards"),
                     help="after the build, run this phase alone (no kernel "
-                    "JSON and no ok line)")
+                    "JSON and no ok line); 'cards' needs 4 cards")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1940,6 +2307,7 @@ def main():
                    "order": lambda: order_phase(st, cfg),
                    "point": lambda: point_phase(st, cfg, dev),
                    "halo": lambda: halo_phase(st, cfg, dev, card),
+                   "cards": lambda: cards_phase(st, cfg),
                    }[args.phase](),
                   flush=True)
         print(card, flush=True)

@@ -12,7 +12,9 @@ from another guess and is not bitwise the straight run.
 Element arrays of a sharded equation (parallel/sharding.py pads them to a
 multiple of the part count) are saved at the true element count and padded
 again on loading, so a checkpoint moves between sharded and unsharded
-equations either way.
+equations either way.  In a multi-card run every rank calls both: the save
+gathers the ranks' element blocks and rank 0 writes, the load keeps each
+rank's block.
 """
 from __future__ import annotations
 
@@ -21,12 +23,14 @@ import os
 import numpy as np
 import torch
 
-from .utils import pad_elem_array, to_numpy as _np, unpad_elems
+from .utils import (is_main_process, pad_elem_array, to_numpy as _np,
+                    unpad_elems)
 
 
 def save_checkpoint(path: str, eq, t_control=None, heat_eq=None,
                     extra: dict | None = None):
-    """Serialize the full simulation state to ``path`` (.npz)."""
+    """Serialize the full simulation state to ``path`` (.npz); in a
+    multi-card run every rank calls it and rank 0 writes."""
     def unpad(x):
         return unpad_elems(eq, x)
 
@@ -50,6 +54,8 @@ def save_checkpoint(path: str, eq, t_control=None, heat_eq=None,
     if extra:
         for k, v in extra.items():
             data[f"extra_{k}"] = _np(v)
+    if not is_main_process():
+        return
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     np.savez(path, **data)
 
@@ -62,17 +68,21 @@ def load_checkpoint(path: str, eq, t_control=None, heat_eq=None) -> dict:
     Floating arrays become float64 tensors on ``eq.device``; boolean state
     stays boolean.  Element arrays are padded to a sharded equation's
     element count as ``shard_equation`` pads them (zero stress and strain,
-    other arrays edge-replicated).  Without ``u_last_step`` (a JAX-package
-    checkpoint) the next step's initial guess starts from ``u``.  Returns
-    the ``extra_*`` entries with the prefix stripped."""
-    n_pad = eq.n_elems - getattr(eq, "n_elems_orig", eq.n_elems)
+    other arrays edge-replicated), and a rank keeps its block.  Without
+    ``u_last_step`` (a JAX-package checkpoint) the next step's initial
+    guess starts from ``u``.  Returns the ``extra_*`` entries with the
+    prefix stripped."""
+    n_pad = getattr(eq.kernel, "n_pad", 0)
+    local = getattr(eq.kernel, "local", lambda a: a)
 
     def to(a, mode=None):
         """A host array as a tensor; an element array (``mode`` given)
-        padded to the equation's element count."""
+        padded as the equation's kernel pads, and its rank's block."""
         a = np.array(a)    # a writable copy
         if mode and n_pad and a.ndim >= 1 and a.shape[0] == eq.n_elems_orig:
             a = pad_elem_array(a, n_pad, mode)
+        if mode:
+            a = local(a)
         dtype = torch.bool if a.dtype == np.bool_ else torch.float64
         return torch.as_tensor(a, dtype=dtype, device=eq.device)
 

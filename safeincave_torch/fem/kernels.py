@@ -189,6 +189,14 @@ class MomentumKernel:
         """(grad_N (4, 3, E), vol (E,)) in ``dtype``."""
         return self._gN[dtype], self._vol[dtype]
 
+    # -- reductions over the ranks of an element-sharded kernel
+    # (parallel/sharding.py); on one device every element is here
+    @staticmethod
+    def global_sum(t):
+        return t
+
+    global_max = gather_elems = replicate = global_sum
+
     # ------------------------------------------------------------------ #
     def prep(self, CT: torch.Tensor) -> torch.Tensor:
         """CT (E, 6, 6) -> contiguous (6, 6, E), once per linear solve.

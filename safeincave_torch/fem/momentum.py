@@ -210,7 +210,10 @@ _BF16_ROWS = 4096    # rows of the bf16 inverse widened to f32 per product
 def build_preconditioner(kern, C, mask, settings: SolverSettings):
     """(P, apply) for the masked operator, built once per wiring from the
     constant elastic stiffness ``C`` and the Dirichlet ``mask``;
-    ``apply(P, r, mask)`` works in r's dtype."""
+    ``apply(P, r, mask)`` works in r's dtype.  On an element-sharded
+    kernel ``C`` is gathered from every rank first, so that each rank
+    builds the same whole operator."""
+    C = kern.gather_elems(C)
     C = C.cpu().numpy() if isinstance(C, torch.Tensor) else np.asarray(C)
     mask = (mask.cpu().numpy() if isinstance(mask, torch.Tensor)
             else np.asarray(mask))
@@ -420,6 +423,22 @@ def select_backend(grid, device):
 _FROZEN = ("eps_old", "rate_old", "qsi_old", "zeta_old")
 
 
+def _step_error(kern, eps_new, eps_old, sv_new, w, trivial=False):
+    """(strain-change error, stress finite) of a fixed-point iteration,
+    over every rank's elements, in one reduction and one host read: the
+    error ||eps_new - eps_old||_w / ||eps_new||_w (0.0 when ``trivial``),
+    and whether every entry of ``sv_new`` is finite."""
+    n_bad = (~torch.isfinite(sv_new)).sum().to(eps_new.dtype)
+    if trivial:
+        return 0.0, not bool(kern.global_sum(n_bad))
+    sums = kern.global_sum(torch.stack([
+        (((eps_new - eps_old) ** 2) * w).sum(), ((eps_new ** 2) * w).sum(),
+        n_bad]))
+    err, n_bad = torch.stack([torch.sqrt(sums[0]) / torch.sqrt(sums[1]),
+                              sums[2]]).tolist()
+    return err, n_bad == 0
+
+
 def _to(state, dtype):
     return {k: v.to(dtype) if v.is_floating_point() else v
             for k, v in state.items()}
@@ -478,8 +497,8 @@ class LinearMomentumBase:
 
     # -- invariants and their smoothing (output fields) -------------------- #
     def _q_dg0(self):
-        """Von Mises stress sqrt(3 J2) per element."""
-        s = self.sig_v
+        """Von Mises stress sqrt(3 J2) per element (every rank's)."""
+        s = self.kernel.gather_elems(self.sig_v)
         I1 = s[:, 0] + s[:, 1] + s[:, 2]
         I2 = (s[:, 0] * s[:, 1] + s[:, 1] * s[:, 2] + s[:, 0] * s[:, 2]
               - s[:, 3] ** 2 - s[:, 4] ** 2 - s[:, 5] ** 2)
@@ -487,8 +506,9 @@ class LinearMomentumBase:
         return torch.sqrt(torch.clamp(3.0 * J2, min=0.0))
 
     def _p_dg0(self):
-        """Mean stress per element."""
-        return (self.sig_v[:, 0] + self.sig_v[:, 1] + self.sig_v[:, 2]) / 3.0
+        """Mean stress per element (every rank's)."""
+        s = self.kernel.gather_elems(self.sig_v)
+        return (s[:, 0] + s[:, 1] + s[:, 2]) / 3.0
 
     def compute_q_nodes(self):
         self.q_nodes = self.grid.elems_to_nodes(self._q_dg0())
@@ -705,8 +725,10 @@ class LinearMomentum(LinearMomentumBase):
                         self._halo, self.mat.C, self.bc.mask,
                         G=self.solver.coarse_agg)
             else:
-                self._precond = build_preconditioner(
+                P, apply_M = build_preconditioner(
                     self.kernel, self.mat.C, self.bc.mask, self.solver)
+                self._precond = (tuple(self.kernel.replicate(p) for p in P),
+                                 apply_M)
         return self._precond
 
     def _get_solver(self):
@@ -833,10 +855,8 @@ class LinearMomentum(LinearMomentumBase):
                 st = e.f_increment_isv(st, sv_new, sv_k, dt)
                 st = e.f_rate(st, sv_new, phi1, Temp32)
                 states3.append(st)
-            diff = torch.sqrt((((eps_new - eps32) ** 2) * w).sum())
-            ref = torch.sqrt(((eps_new ** 2) * w).sum())
-            err = float(torch.where(torch.isfinite(sv_new).all(), diff / ref,
-                                    math.inf))
+            err, finite = _step_error(kern, eps_new, eps32, sv_new, w)
+            err = err if finite else math.inf
             prog = err < 0.5 * err_prev
             kry_tot += kry
             st32, sv32, eps32, u32 = states3, sv_new, eps_new, u_new
@@ -857,7 +877,9 @@ class LinearMomentum(LinearMomentumBase):
             checks += [torch.isfinite(a).all()
                        for a in leaves + [sv64, eps64, u64]
                        if a.is_floating_point()]
-            ok = bool(torch.stack(checks).all())
+            # every rank's checks: the gate is one decision
+            failed = (~torch.stack(checks).all()).to(F64)
+            ok = not bool(kern.global_max(failed))
         if not ok:
             return states, sv, eps_v, u, 0, 1.0, kry_tot, kry
         self.fp32_accepted += 1
@@ -909,7 +931,8 @@ class LinearMomentum(LinearMomentumBase):
         # the entry snapshot shares its tensors with the live state: every
         # update below makes new tensors, none writes in place
         entry = (states, sv, eps_v, u)
-        sv_scale = float(sv.abs().max()) if adaptive else 0.0
+        sv_scale = float(kern.global_max(sv.abs().max())) if adaptive \
+            else 0.0
         ite, err, sv_k, first = 0, 1.0, sv, True
         kry_tot, kry, lin_res = 0, 0, 0.0
         if (fp32_on and not trivial_error
@@ -977,17 +1000,14 @@ class LinearMomentum(LinearMomentumBase):
                 st = e.f_increment_isv(st, sv_new, sv_lin, dt)
                 st = e.f_rate(st, sv_new, phi1, self.Temp)
                 states3.append(st)
-            if trivial_error:
-                err = 0.0
-            else:
-                diff = torch.sqrt((((eps_new - eps_v) ** 2) * w).sum())
-                ref = torch.sqrt(((eps_new ** 2) * w).sum())
-                err = float(diff / ref)
-            if not (solve_ok and bool(torch.isfinite(sv_new).all())):
+            err, finite = _step_error(kern, eps_new, eps_v, sv_new, w,
+                                      trivial_error)
+            if not (solve_ok and finite):
                 err = math.inf
             bad = not tight and (
                 stalled or not math.isfinite(err)
-                or float(sv_new.abs().max()) > 3.0 * sv_scale + 1e7)
+                or float(kern.global_max(sv_new.abs().max()))
+                > 3.0 * sv_scale + 1e7)
             if bad:
                 states3, sv_new, eps_new, u_new = entry
                 sv_k, err = entry[1], 1.0

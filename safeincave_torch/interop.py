@@ -4,7 +4,8 @@
 and of a heat equation beside it (it only converts arrays with numpy, so it
 needs no JAX import), and ``load_numpy_state`` places such a state on the
 port's equations at their device and dtype.  Element arrays of a sharded
-equation are read at the true element count.  Tests use the pair to start
+equation are read at the true element count (gathered from every rank of a
+multi-card run, so every rank makes the call).  Tests use the pair to start
 both packages from the same state.
 """
 from __future__ import annotations

@@ -6,16 +6,19 @@ import json
 import os
 import time
 
+from .utils import is_main_process
+
 
 class StepMetrics:
-    """Accumulates one record per time step; optionally streams JSONL."""
+    """Accumulates one record per time step; optionally streams JSONL
+    (rank 0 of a multi-card run writes the file)."""
 
     def __init__(self, jsonl_path: str | None = None):
         self.records: list[dict] = []
         self.jsonl_path = jsonl_path
         self._fh = None
         self._t_last = time.time()
-        if jsonl_path:
+        if jsonl_path and is_main_process():
             os.makedirs(os.path.dirname(jsonl_path) or ".", exist_ok=True)
             self._fh = open(jsonl_path, "w")
 

@@ -12,12 +12,7 @@ import time
 
 import torch
 
-
-def _is_main_process() -> bool:
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank() == 0
-    return True
+from ..utils import is_main_process
 
 
 def _device_label(device) -> str:
@@ -58,7 +53,7 @@ class ScreenPrinter:
     # ------------------------------------------------------------------ #
     def _log(self, text: str = ""):
         self.lines.append(text)
-        if _is_main_process():
+        if is_main_process():
             print(text, flush=True)
 
     def _emit_banner(self):
@@ -101,7 +96,7 @@ class ScreenPrinter:
         elapsed = time.time() - self.t_start
         self._log("-" * 78)
         self._log(f"  wall-clock: {elapsed:.2f} s")
-        if _is_main_process():
+        if is_main_process():
             for out in self.outputs:
                 folder = getattr(out, "output_folder", None)
                 if folder:

@@ -16,7 +16,7 @@ import shutil
 
 import numpy as np
 
-from ..utils import unpad_elems
+from ..utils import is_main_process, unpad_elems
 
 
 def _field_layout(arr, n_nodes, n_elems):
@@ -44,7 +44,9 @@ class SaveFields:
 
     The simulators drive it through ``initialize``, ``save_fields(t)``,
     ``calls_until_next_keep``, ``skip_calls(k)`` and ``save_mesh``; any
-    object with those methods (and ``fields``) can stand in for it."""
+    object with those methods (and ``fields``) can stand in for it.  In a
+    multi-card run every rank drives it (the element fields are gathered
+    from every rank) and rank 0 writes."""
 
     def __init__(self, eq, save_every: int = 1):
         """``save_every=N`` keeps only every N-th save call (plus the
@@ -57,6 +59,7 @@ class SaveFields:
         self._call_count = 0
         self._handles = {}
         self._times = {}
+        self._writes = is_main_process()
 
     def set_output_folder(self, folder: str):
         self.output_folder = folder
@@ -66,6 +69,8 @@ class SaveFields:
 
     # ------------------------------------------------------------------ #
     def initialize(self):
+        if not self._writes:
+            return
         import h5py
         for field_name, _ in self.fields:
             fdir = os.path.join(self.output_folder, field_name)
@@ -102,6 +107,8 @@ class SaveFields:
             return
         for field_name, label in self.fields:
             arr = self._get_field(field_name)
+            if not self._writes:
+                continue
             h5 = self._handles[field_name]
             step = len(self._times[field_name])
             center, attr_type, flat_shape = _field_layout(
@@ -115,8 +122,11 @@ class SaveFields:
         """Finalize: write the XDMF text and copy the source mesh."""
         for field_name, label in self.fields:
             arr = self._get_field(field_name)
-            self._write_xdmf(field_name, arr)
-            self._handles[field_name].close()
+            if self._writes:
+                self._write_xdmf(field_name, arr)
+                self._handles[field_name].close()
+        if not self._writes:
+            return
         mesh_dir = os.path.join(self.output_folder, "mesh")
         os.makedirs(mesh_dir, exist_ok=True)
         src_folder = getattr(self.grid, "grid_folder", None)

@@ -1,10 +1,11 @@
 """Domain decomposition: element sharding with a summed assembly and the
-owned-node halo exchange, D parts on one device (port of
+owned-node halo exchange, D parts over W ranks, one device each (port of
 ``safeincave_tpu/parallel``)."""
-from .sharding import (make_device_mesh, shard_equation, shard_tm,
+from .sharding import (PartMesh, make_device_mesh, shard_equation, shard_tm,
                        ShardedMomentumKernel, ShardedHeatKernel)
 from .halo import HaloPlan, HaloMomentumSolver
+from .dist import Comm, init_parts, launch, shutdown
 
-__all__ = ["make_device_mesh", "shard_equation", "shard_tm",
+__all__ = ["PartMesh", "make_device_mesh", "shard_equation", "shard_tm",
            "ShardedMomentumKernel", "ShardedHeatKernel", "HaloPlan",
-           "HaloMomentumSolver"]
+           "HaloMomentumSolver", "Comm", "init_parts", "launch", "shutdown"]

@@ -13,10 +13,15 @@ only part-boundary rows between geometric neighbours:
               back to their owners, which add them into their owned rows.
 
 The JAX package runs the parts on devices under one ``shard_map`` program
-and a round is a ``ppermute``.  Here the D parts are stacked on a leading
-axis of tensors on one device: the body of the ``shard_map`` is a batched op
-over that axis, a round is one gather and one ``index_add_`` over the
-flattened parts, and a ``psum`` is a sum over the axis.  That computes the
+and a round is a ``ppermute``.  Here each rank of a multi-card run (W = 1
+without a process group) holds D/W of the D parts, stacked on a leading axis
+of tensors on its device: the body of the ``shard_map`` is a batched op over
+that axis.  A round moves rows between two parts of one rank by one gather
+and one ``index_add_`` over the flattened parts, and between two ranks by one
+``batch_isend_irecv`` of the packed rows (:meth:`Comm.exchange`), which the
+receiver adds into its slots; a ``psum`` is a sum over the axis and an
+all-reduce over the ranks.  Every slot gets at most one nonzero add per
+round, so a run repeats bit for bit, and with W = 1 it is the stacked
 D-part program itself (the same partition, rounds and summation structure)
 with the launches of one part.
 
@@ -34,6 +39,7 @@ import torch
 from ..fem.kernels import F32, F64, NodeGather, element_stiffness
 from ..fem.momentum import _blk_apply, _coarse_space
 from ..mesh.native import morton_order, rcb_partition
+from .dist import RankOps
 
 # Voigt index of tensor entry (i, j), row-major, tensorial [xx yy zz xy xz yz]
 _T2V = [0, 3, 4, 3, 1, 5, 4, 5, 2]
@@ -222,41 +228,67 @@ class HaloPlan:
         return self.D * self.comm_volume_per_matvec() / float(self.n_nodes)
 
 
-def _round_tables(plan, reverse):
-    """Per round, (flat gather index, flat add index) of the exchange over
-    the stacked parts.  Forward: rows of the (D, S+1) owned block (row S is
-    zero) into the (D, H+1) halo block; reverse: rows of the halo block (row
-    H is zero) into the (D, S+1) owner accumulator.  A part that receives
-    nothing in a round gathers its own zero row, as a ``ppermute`` hands a
-    part without a source zeros."""
+def _round_tables(plan, reverse, first=0, n_local=None):
+    """Per round, the exchange of the parts [first, first + n_local) one
+    rank holds (all D by default), stacked: (flat gather index, flat add
+    index, sends, recvs).  Forward: rows of the (n_local, S+1) owned block
+    (row S is zero) into the (n_local, H+1) halo block; reverse: rows of the
+    halo block (row H is zero) into the (n_local, S+1) owner accumulator.
+    The gather and add serve the pairs within the rank; a part whose source
+    in the round is elsewhere, or that receives nothing, gathers its own
+    zero row, as a ``ppermute`` hands a part without a source zeros.
+    ``sends`` and ``recvs`` list (peer rank, flat row index) for the pairs
+    between ranks, each peer's pairs packed in the round's pair order: the
+    rows to send, and the slots the received rows are added into."""
     D, S, H = plan.D, plan.S, plan.H
+    n_local = D if n_local is None else n_local
+    last = first + n_local
+    loc = np.arange(first, last)
     out = []
     for ps, pr, perm in zip(plan.pair_send, plan.pair_recv, plan.perms):
         if reverse:
             src_tbl, dst_tbl, n_src, n_dst = pr, ps, H + 1, S + 1
-            perm = [(d, o) for (o, d) in perm]
+            pairs = [(d, o, o) for (o, d) in perm]
         else:
             src_tbl, dst_tbl, n_src, n_dst = ps, pr, S + 1, H + 1
+            pairs = [(o, d, o) for (o, d) in perm]
         src_of = np.arange(D)
         has = np.zeros(D, dtype=bool)
-        for s, d in perm:
+        for s, d, _ in pairs:
             src_of[d], has[d] = s, True
-        gather = src_of[:, None] * n_src + np.where(
-            has[:, None], src_tbl[src_of], n_src - 1)
-        add = np.arange(D)[:, None] * n_dst + dst_tbl
-        out.append((gather.reshape(-1), add.reshape(-1)))
+        own = has[loc] & (src_of[loc] >= first) & (src_of[loc] < last)
+        src = np.where(own, src_of[loc], loc)
+        gather = (src - first)[:, None] * n_src + np.where(
+            own[:, None], src_tbl[src], n_src - 1)
+        add = np.arange(n_local)[:, None] * n_dst + dst_tbl[loc]
+        sends, recvs = {}, {}
+        for s, d, owner in pairs:
+            k = int((ps[owner] != S).sum())      # the pair's true rows
+            s_in, d_in = first <= s < last, first <= d < last
+            if s_in and not d_in:
+                sends.setdefault(int(d) // n_local, []).append(
+                    (s - first) * n_src + src_tbl[s, :k])
+            elif d_in and not s_in:
+                recvs.setdefault(int(s) // n_local, []).append(
+                    (d - first) * n_dst + dst_tbl[d, :k])
+        out.append((gather.reshape(-1), add.reshape(-1),
+                    [(p, np.concatenate(v)) for p, v in sorted(sends.items())],
+                    [(p, np.concatenate(v)) for p, v in sorted(recvs.items())]))
     return out
 
 
-class HaloMomentumSolver:
+class HaloMomentumSolver(RankOps):
     """Distributed masked stiffness action and layout maps over a part
     mesh.
 
-    ``matvec_padded`` works on owner-blocked (D*S, 3) vectors; ``to_padded``
-    and ``from_padded`` move between that layout and the global (n_nodes, 3)
-    one.  Element tangents go to the parts in local element order through
-    ``ct_to_local`` once per linearized solve.  Every tensor lives on the
-    part mesh's device with the part axis leading.
+    ``matvec_padded`` works on owner-blocked (D_loc*S, 3) vectors, the
+    owned rows of this rank's D_loc parts; ``to_padded`` and
+    ``from_padded`` move between that layout and the global (n_nodes, 3)
+    one, which is whole on every rank.  Element tangents (the rank's block
+    of the element-sharded layout) go to the parts in local element order
+    through ``ct_to_local`` once per linearized solve.  Every tensor lives
+    on this rank's device with the part axis leading; ``dot`` is the
+    all-reduced inner product of owner-blocked vectors.
     """
 
     def __init__(self, grid, mesh, plan: HaloPlan | None = None,
@@ -270,6 +302,10 @@ class HaloMomentumSolver:
         self.mesh = mesh
         self.axis = axis
         self.device = dev = mesh.device
+        self.comm, self.world = mesh.comm, mesh.world
+        self.D_loc = Dl = mesh.parts_per_rank
+        self.first_part = p0 = mesh.first_part
+        parts = slice(p0, p0 + Dl)
         self.S = S = plan.S
         self.H = H = plan.H
         self.L = L = S + H + 1           # + the dump row of the reverse pads
@@ -277,49 +313,87 @@ class HaloMomentumSolver:
         def put(a, dtype=F64):
             return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
 
-        self.conn_local = put(plan.conn_local, torch.int64)
-        self.grad_N_local = put(plan.grad_N_local)
-        self.vol_local = put(plan.vol_local * plan.elem_pad)
+        self.conn_local = put(plan.conn_local[parts], torch.int64)
+        self.grad_N_local = put(plan.grad_N_local[parts])
+        self.vol_local = put((plan.vol_local * plan.elem_pad)[parts])
         self.grad_N_local32 = self.grad_N_local.to(F32)
         self.vol_local32 = self.vol_local.to(F32)
         self.pair_send = tuple(put(a, torch.int64) for a in plan.pair_send)
         self.pair_recv = tuple(put(a, torch.int64) for a in plan.pair_recv)
         self.node_perm = put(plan.node_perm, torch.int64)
-        self.elem_gids_flat = put(plan.elem_gids.reshape(-1), torch.int64)
-        self.elem_pad_flat = put(plan.elem_pad.reshape(-1))
-        self._fwd = [(put(g, torch.int64), put(a, torch.int64))
-                     for g, a in _round_tables(plan, reverse=False)]
-        self._rev = [(put(g, torch.int64), put(a, torch.int64))
-                     for g, a in _round_tables(plan, reverse=True)]
-        # element nodes as rows of the flattened (D*L) local blocks, and the
-        # deterministic local segment sums (a gather and a row reduction:
-        # index_add_ is atomic on CUDA)
-        keys = (np.arange(D)[:, None, None] * L
-                + plan.conn_local.astype(np.int64))
+        # this rank's owned nodes and their rows of its owner blocks
+        own_nodes = np.nonzero((plan.owner >= p0)
+                               & (plan.owner < p0 + Dl))[0]
+        self._own_rows = put(plan.node_perm[own_nodes] - p0 * S,
+                             torch.int64)
+        self._own_nodes = (None if self.world == 1
+                           else put(own_nodes, torch.int64))
+        self.elem_gids_flat = put(plan.elem_gids[parts].reshape(-1),
+                                  torch.int64)
+        self.elem_pad_flat = put(plan.elem_pad[parts].reshape(-1))
+
+        def tables(reverse):
+            return [(put(g, torch.int64), put(a, torch.int64),
+                     [(p, put(i, torch.int64)) for p, i in snd],
+                     [(p, put(i, torch.int64)) for p, i in rcv])
+                    for g, a, snd, rcv in _round_tables(plan, reverse, p0,
+                                                        Dl)]
+        self._fwd, self._rev = tables(False), tables(True)
+        # element nodes as rows of the flattened (D_loc*L) local blocks, and
+        # the deterministic local segment sums (a gather and a row
+        # reduction: index_add_ is atomic on CUDA)
+        keys = (np.arange(Dl)[:, None, None] * L
+                + plan.conn_local[parts].astype(np.int64))
         self._conn_flat = put(keys, torch.int64)
-        self._seg = NodeGather.build(keys.reshape(-1), D * L, dev)
+        self._seg = NodeGather.build(keys.reshape(-1), Dl * L, dev)
+
+    # -- communication between the ranks ----------------------------------- #
+    def dot(self, a, b):
+        """<a, b> of owner-blocked vectors over every part: this rank's
+        dot, all-reduced."""
+        return self.global_sum(torch.dot(a.reshape(-1), b.reshape(-1)))
+
+    def rows_sent_per_matvec(self) -> int:
+        """Rows this rank sends to other ranks per matvec, forward and
+        reverse (0 on one rank)."""
+        return sum(int(i.numel()) for tbl in (self._fwd, self._rev)
+                   for _, _, snd, _ in tbl for _, i in snd)
+
+    def _round(self, dst, src, table):
+        """One round: the pairs within the rank by a gather and an
+        ``index_add_``, then the pairs between ranks by one exchange whose
+        received rows are added into their slots."""
+        gather, add, sends, recvs = table
+        dst.index_add_(0, add, src[gather])
+        if sends or recvs:
+            bufs = self.comm.exchange(
+                [(p, src[i]) for p, i in sends],
+                [(p, (i.numel(), *src.shape[1:]), src.dtype)
+                 for p, i in recvs])
+            for (_, i), buf in zip(recvs, bufs):
+                dst.index_add_(0, i, buf)
 
     # -- exchange --------------------------------------------------------- #
     def _fwd_exchange(self, u_own):
-        """Neighbour rounds: the (D, H+1, 3) halo rows (+ dump slot) of the
-        owned rows u_own (D, S, 3)."""
+        """Neighbour rounds: the (D_loc, H+1, 3) halo rows (+ dump slot) of
+        the owned rows u_own (D_loc, S, 3)."""
         D = u_own.shape[0]
         u_ext = torch.cat([u_own, u_own.new_zeros((D, 1, 3))], 1)
         u_ext = u_ext.reshape(-1, 3)
         halo = u_own.new_zeros((D * (self.H + 1), 3))
-        for gather, add in self._fwd:
-            halo.index_add_(0, add, u_ext[gather])
+        for table in self._fwd:
+            self._round(halo, u_ext, table)
         return halo.reshape(D, self.H + 1, 3)
 
     def _rev_exchange(self, f_halo, tail):
-        """Reverse rounds: ship the halo partial sums f_halo (D, H+1,
+        """Reverse rounds: ship the halo partial sums f_halo (D_loc, H+1,
         *tail), dump slot zero, back to their owners; returns the owners'
-        (D, S, *tail) accumulation."""
+        (D_loc, S, *tail) accumulation."""
         D = f_halo.shape[0]
         src = f_halo.reshape((-1, *tail))
         back = f_halo.new_zeros((D * (self.S + 1), *tail))
-        for gather, add in self._rev:
-            back.index_add_(0, add, src[gather])
+        for table in self._rev:
+            self._round(back, src, table)
         return back.reshape((D, self.S + 1, *tail))[:, :self.S]
 
     # -- element kernels -------------------------------------------------- #
@@ -370,30 +444,36 @@ class HaloMomentumSolver:
 
     # -- layout conversion (outside the Krylov loop) ----------------------- #
     def to_padded(self, v):
-        """(n_nodes, ...) global -> (D*S, ...) owner-blocked layout."""
-        out = v.new_zeros((self.plan.D * self.S, *v.shape[1:]))
-        out[self.node_perm] = v
+        """(n_nodes, ...) global -> (D_loc*S, ...) owner-blocked layout."""
+        out = v.new_zeros((self.D_loc * self.S, *v.shape[1:]))
+        out[self._own_rows] = v if self._own_nodes is None \
+            else v[self._own_nodes]
         return out
 
     def from_padded(self, vp):
-        """(D*S, ...) -> (n_nodes, ...)."""
+        """(D_loc*S, ...) -> (n_nodes, ...), the owned rows of every rank
+        gathered."""
+        if self.comm is not None and self.world > 1:
+            vp = self.comm.all_gather(vp)
         return vp[self.node_perm]
 
     pad_rows = to_padded
 
     def ct_to_local(self, CT):
-        """Global (E, 6, 6) tangents (``E`` may carry element padding) ->
-        (D, E_loc, 6, 6) in each part's local element order, zero on padded
-        local elements."""
+        """Tangents (E, 6, 6) in the element-sharded layout (this rank's
+        block; ``E`` may carry element padding) -> (D_loc, E_loc, 6, 6) in
+        each part's local element order, zero on padded local elements."""
         CT = torch.as_tensor(CT, device=self.device)
         return self.ct_to_local_traced(CT)
 
     def ct_to_local_traced(self, CT):
-        """:meth:`ct_to_local` of a tensor already on the device: one gather
-        per linearized solve, not per matvec."""
+        """:meth:`ct_to_local` of a tensor already on the device: one
+        all-gather over the ranks and one gather per linearized solve, not
+        per matvec."""
+        CT = self.gather_elems(CT)
         pad = self.elem_pad_flat.to(CT.dtype)
         CT_l = CT[self.elem_gids_flat] * pad[:, None, None]
-        return CT_l.reshape(self.plan.D, -1, 6, 6)
+        return CT_l.reshape(self.D_loc, -1, 6, 6)
 
     def _geom(self, dtype):
         if dtype == F32:
@@ -401,22 +481,22 @@ class HaloMomentumSolver:
         return self.grad_N_local, self.vol_local
 
     def matvec_padded(self, CT_local, u_pad, mask_pad):
-        """Distributed masked A @ u on (D*S, 3) vectors; CT_local from
+        """Distributed masked A @ u on (D_loc*S, 3) vectors; CT_local from
         :meth:`ct_to_local`."""
         return self.matvec_pad(CT_local, u_pad, mask_pad)
 
     def matvec_pad(self, CT_local, u_pad, mask_pad):
         """Dtype-polymorphic distributed masked A @ u (padded layout): the
         geometry twin of u's dtype."""
-        D, S = self.plan.D, self.S
+        D, S = self.D_loc, self.S
         gN, vol = self._geom(u_pad.dtype)
         out = self._matvec(CT_local, u_pad.reshape(D, S, 3),
                            mask_pad.reshape(D, S, 3), gN, vol)
         return out.reshape(D * S, 3)
 
     def block_diagonal_padded(self, CT_local):
-        """Owner-assembled nodal 3x3 stiffness blocks, (D*S, 3, 3)."""
-        return self._blockdiag(CT_local).reshape(self.plan.D * self.S, 3, 3)
+        """Owner-assembled nodal 3x3 stiffness blocks, (D_loc*S, 3, 3)."""
+        return self._blockdiag(CT_local).reshape(self.D_loc * self.S, 3, 3)
 
 
 def make_halo_masked_solver(halo: HaloMomentumSolver, settings, apply_M,
@@ -450,14 +530,13 @@ def make_halo_masked_solver(halo: HaloMomentumSolver, settings, apply_M,
         else:
             b_eff = (mp * (bp - halo.matvec_pad(CT_l, up, mp))
                      + (1.0 - mp) * up)
-        b_eff_norm = torch.sqrt(torch.dot(b_eff.reshape(-1),
-                                          b_eff.reshape(-1)))
+        b_eff_norm = torch.sqrt(halo.dot(b_eff, b_eff))
         if not mixed:
             x, k, res = solve(Aop, b_eff, x0p, M_inv, rtol=rtol,
-                              maxiter=settings.max_it)
+                              maxiter=settings.max_it, dot=halo.dot)
             return halo.from_padded(x), k, res, b_eff_norm
 
-        CT_l32 = halo.ct_to_local_traced(CT.to(F32))
+        CT_l32 = CT_l.to(F32)
         mp32 = mp.to(F32)
 
         def Aop32(x):
@@ -471,10 +550,10 @@ def make_halo_masked_solver(halo: HaloMomentumSolver, settings, apply_M,
                              inner_solve=solve, rtol=rtol,
                              inner_rtol=settings.inner_rtol,
                              inner_maxiter=settings.max_it,
-                             max_passes=settings.max_passes)
+                             max_passes=settings.max_passes, dot=halo.dot)
         if float(res) > rtol * float(b_eff_norm):
             x2, k2, res2 = solve(Aop, b_eff, x, M_inv, rtol=rtol,
-                                 maxiter=settings.max_it)
+                                 maxiter=settings.max_it, dot=halo.dot)
             k += k2
             if math.isfinite(float(res2)) and float(res2) < float(res):
                 x, res = x2, res2
@@ -496,7 +575,7 @@ def make_halo_solve32(halo: HaloMomentumSolver, settings, apply_M,
 
     def solve32(CT, b, x0, rtol, mask32, ubc32, P):
         CT_l64 = halo.ct_to_local_traced(CT.to(F64))
-        CT_l32 = halo.ct_to_local_traced(CT)
+        CT_l32 = CT_l64.to(F32)
         mp = halo.to_padded(mask32.to(F64))
         mp32 = mp.to(F32)
         up64 = halo.to_padded(ubc32.to(F64))
@@ -521,7 +600,8 @@ def make_halo_solve32(halo: HaloMomentumSolver, settings, apply_M,
         x, k, res = ir_solve(Aop_hi, Aop_lo, b_eff, x0p, M_inv,
                              inner_solve=solve, rtol=rtol,
                              inner_rtol=settings.inner_rtol,
-                             inner_maxiter=settings.max_it, max_passes=4)
+                             inner_maxiter=settings.max_it, max_passes=4,
+                             dot=halo.dot)
         return halo.from_padded(x).to(F32), k, res.to(F32)
 
     return solve32
@@ -561,8 +641,10 @@ def halo_two_level(halo: HaloMomentumSolver, C, mask, G: int = 16):
     points, whatever the mesh's numbering (the restriction is a segment sum
     over a static table, so compact aggregates cost nothing).  The coarse
     matrix R A R^T is assembled once per wiring from the elastic element
-    stiffness of the unpadded mesh and inverted in f32
-    (``fem.momentum._coarse_space``)."""
+    stiffness of the unpadded mesh (``C`` gathered from every rank) and
+    inverted in f32 (``fem.momentum._coarse_space``), alike on every rank.
+    Each apply restricts this rank's rows and all-reduces the (n_agg, 3)
+    coarse residual."""
     grid = halo.grid
     (blk_inv,), _ = halo_block_jacobi(halo, C, mask)
 
@@ -575,6 +657,7 @@ def halo_two_level(halo: HaloMomentumSolver, C, mask, G: int = 16):
         n_nodes=grid.n_nodes, device=halo.device,
         conn_np=np.asarray(grid.conn, dtype=np.int64),
         element_stiffness=lambda C_: element_stiffness(grad_N, vol, C_))
+    C = halo.gather_elems(C)
     C_np = C.cpu().numpy() if isinstance(C, torch.Tensor) else np.asarray(C)
     mask_np = (mask.cpu().numpy() if isinstance(mask, torch.Tensor)
                else np.asarray(mask))
@@ -583,11 +666,14 @@ def halo_two_level(halo: HaloMomentumSolver, C, mask, G: int = 16):
     coarse_inv, n_agg, _ = _coarse_space(kern_view, C_np[:grid.n_elems],
                                          mask_np.astype(np.float64), G,
                                          agg_of_node=agg_of_node)
+    coarse_inv = halo.replicate(coarse_inv)
 
-    # padded row -> aggregate (padding rows to a dump slot n_agg)
-    DS = halo.plan.D * halo.S
-    agg_pad = np.full(DS, n_agg, dtype=np.int64)
+    # padded row -> aggregate (padding rows to a dump slot n_agg), this
+    # rank's rows
+    S = halo.S
+    agg_pad = np.full(halo.plan.D * S, n_agg, dtype=np.int64)
     agg_pad[halo.plan.node_perm] = agg_of_node
+    agg_pad = agg_pad[halo.first_part * S:(halo.first_part + halo.D_loc) * S]
     restrict = NodeGather.build(agg_pad, n_agg + 1, halo.device)
     agg_gather = torch.as_tensor(np.minimum(agg_pad, n_agg - 1),
                                  device=halo.device)
@@ -596,7 +682,7 @@ def halo_two_level(halo: HaloMomentumSolver, C, mask, G: int = 16):
         blk_inv, coarse_inv = P
         z = _blk_apply(blk_inv, r)
         rm = r * m     # padding rows carry m = 0: the dump slot is inert
-        rc = restrict.sum(rm, (3,))[:n_agg]
+        rc = halo.global_sum(restrict.sum(rm, (3,))[:n_agg])
         zc = (coarse_inv @ rc.reshape(-1).to(F32)).reshape(n_agg, 3)
         return z + zc[agg_gather].to(r.dtype) * m
 

@@ -6,14 +6,16 @@ axis: the constitutive update runs per shard without communication, each
 shard scatter-adds its element contributions into a full nodal vector and a
 ``psum`` over the axis assembles them (the reference's PETSc ghost updates).
 
-The port runs the same D-part computation on one device: element arrays are
-padded to a multiple of D exactly as the JAX package pads them, the parts are
-D contiguous blocks of E_pad / D elements stacked on a leading axis, each
-part sums its contributions into its own nodal vector, and the parts are
-summed (the ``psum``).  A :class:`PartMesh` names the parts and their device;
-all parts live on that one device.  Running the parts on several cards
-(point-to-point rounds and all-reduces between processes) is not part of the
-port yet.
+The port runs the same D-part computation on W ranks, one device each
+(W = 1 without a process group): element arrays are padded to a multiple of
+D exactly as the JAX package pads them, the parts are D contiguous blocks of
+E_pad / D elements, and rank r keeps parts [r D/W, (r+1) D/W), a contiguous
+block of E_pad / W elements, stacked on a leading axis.  Each part sums its
+contributions into its own nodal vector, the rank sums its parts, and an
+all-reduce over the ranks (:mod:`~safeincave_torch.parallel.dist`) sums the
+ranks: the ``psum``.  Nodal vectors are whole and the same bits on every
+rank; element arrays hold the rank's block.  A :class:`PartMesh` names the
+parts, this rank's device and the process group.
 
 Padded cells have zero volume, node 0 as every vertex and edge-replicated
 gradients and material data, so their strain is zero, they add nothing to
@@ -21,12 +23,13 @@ forces, norms or rates, and their constitutive maths stays finite.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from .._device import default_device
+from . import dist
 from ..fem.kernels import (F32, F64, HeatKernel, NodeGather,
                            element_stiffness)
 from ..utils import pad_elem_array, tensor_to_voigt, voigt_to_tensor
@@ -34,61 +37,113 @@ from ..utils import pad_elem_array, tensor_to_voigt, voigt_to_tensor
 
 @dataclass(frozen=True)
 class PartMesh:
-    """D parts of one decomposition axis, all on ``device``: the port's
-    stand-in for a ``jax.sharding.Mesh``."""
+    """D parts of one decomposition axis over ``world`` ranks: the port's
+    stand-in for a ``jax.sharding.Mesh``.  This rank holds parts
+    [``first_part``, ``first_part + parts_per_rank``) on ``device``;
+    ``comm`` is the process group (None: every part on this device)."""
     n_parts: int
     device: torch.device
     axis: str = "e"
+    rank: int = 0
+    world: int = 1
+    comm: object = field(default=None, compare=False, repr=False)
+
+    @property
+    def parts_per_rank(self) -> int:
+        return self.n_parts // self.world
+
+    @property
+    def first_part(self) -> int:
+        return self.rank * self.parts_per_rank
+
+
+def _same_device(a, b) -> bool:
+    """Whether two devices are one, ``cuda`` meaning the current card."""
+    a, b = torch.device(a), torch.device(b)
+    if a.type == "cuda" and a.index is None:
+        a = torch.device("cuda", torch.cuda.current_device())
+    if b.type == "cuda" and b.index is None:
+        b = torch.device("cuda", torch.cuda.current_device())
+    return a == b
 
 
 def make_device_mesh(n_parts: int | None = None, device=None,
-                     axis: str = "e") -> PartMesh:
-    """A :class:`PartMesh` of ``n_parts`` parts on ``device``.
+                     axis: str = "e", comm=None,
+                     stacked: bool = False) -> PartMesh:
+    """A :class:`PartMesh` of ``n_parts`` parts.
 
-    ``device`` defaults to :func:`~safeincave_torch.default_device` (the
-    card; it raises without one, naming ``device="cpu"``), ``n_parts`` to
-    the number of visible CUDA devices, as the JAX package defaults to all
-    devices."""
-    device = torch.device(device) if device is not None else default_device()
-    if n_parts is None:
-        n_parts = torch.cuda.device_count()
+    In a multi-card run (``comm``, default the communicator of
+    :func:`~safeincave_torch.parallel.dist.init_parts`) the parts are split
+    over the ranks, ``n_parts`` defaults to the world size (one part per
+    card, as the JAX package defaults to all devices) and must be a
+    multiple of it, and ``device`` is this rank's card.  Without a process
+    group, or with ``stacked=True``, every part lives on ``device``
+    (default :func:`~safeincave_torch.default_device`: the card; it raises
+    without one, naming ``device="cpu"``), and ``n_parts`` defaults to the
+    number of visible CUDA devices."""
+    if comm is None and not stacked:
+        comm = dist.current()
+    if comm is not None:
+        if device is not None and not _same_device(device, comm.device):
+            raise ValueError(f"make_device_mesh: rank {comm.rank} runs on "
+                             f"{comm.device}, not {device}")
+        device, rank, world = comm.device, comm.rank, comm.world
+        if n_parts is None:
+            n_parts = world
+    else:
+        device = torch.device(device) if device is not None \
+            else default_device()
+        rank, world = 0, 1
+        if n_parts is None:
+            n_parts = torch.cuda.device_count()
     if n_parts < 1:
         raise ValueError(f"make_device_mesh: {n_parts} parts; give n_parts "
                          f"(no CUDA device is visible)")
-    return PartMesh(int(n_parts), device, axis)
+    if n_parts % world:
+        raise ValueError(f"make_device_mesh: {n_parts} parts do not split "
+                         f"over {world} ranks; give a multiple of {world}")
+    return PartMesh(int(n_parts), device, axis, rank, world, comm)
 
 
 class _PartSums:
-    """Node sums of element contributions (E_pad, 4, *tail) with a
-    :class:`NodeGather`'s ``sum``: each part (a block of E_pad / D
-    elements) sums its own into bins d * n_nodes + node, deterministically,
-    then the parts are summed (the ``psum``)."""
+    """Node sums of element contributions (E_loc, 4, *tail), E_loc the
+    rank's block, with a :class:`NodeGather`'s ``sum``: each of the rank's
+    D_loc parts (a block of E_loc / D_loc elements) sums its own into bins
+    d * n_nodes + node, deterministically, the parts are summed, then the
+    ranks (the ``psum``)."""
 
-    def __init__(self, conn_np, D, n_nodes, device):
+    def __init__(self, conn_np, D, n_nodes, device, comm=None):
         part = np.repeat(np.arange(D), conn_np.shape[0] // D)[:, None]
         keys = part * n_nodes + conn_np
         self._gather = NodeGather.build(keys.reshape(-1), D * n_nodes,
                                         device)
-        self.D, self.n_nodes = D, n_nodes
+        self.D, self.n_nodes, self.comm = D, n_nodes, comm
 
     def sum(self, contrib, tail=()):
         per_part = self._gather.sum(contrib, tail)
-        return per_part.reshape((self.D, self.n_nodes, *tail)).sum(0)
+        out = per_part.reshape((self.D, self.n_nodes, *tail)).sum(0)
+        return out if self.comm is None else self.comm.allreduce_sum(out)
 
 
-class _ShardedGeometry:
-    """Padded element geometry of one grid over a part mesh."""
+class _ShardedGeometry(dist.RankOps):
+    """Padded element geometry of one grid over a part mesh: the host
+    arrays (for the preconditioner builds) whole, the device tensors this
+    rank's block ``block`` of ``n_elems`` elements."""
 
     def __init__(self, grid, mesh: PartMesh, axis: str = "e"):
         self.grid = grid
         self.mesh = mesh
         self.axis = axis
         self.device = mesh.device
+        self.comm, self.world = mesh.comm, mesh.world
         D = self.D = mesh.n_parts
         E = grid.n_elems
         self.n_elems_orig = E
         self.n_pad = (-E) % D
-        self.n_elems = E + self.n_pad
+        self.n_elems_padded = E + self.n_pad
+        n_blk = self.n_elems_padded // mesh.world
+        self.n_elems = n_blk
+        self.block = slice(mesh.rank * n_blk, (mesh.rank + 1) * n_blk)
         self.n_nodes = grid.n_nodes
         # padded cells: conn -> node 0, grad_N edge-replicated (rows sum to
         # zero, so the padded strain is 0), volume 0
@@ -98,19 +153,34 @@ class _ShardedGeometry:
         self.vol = pad_elem_array(np.asarray(grid.volumes), self.n_pad,
                                   mode="zero")
         dev = self.device
-        self.conn = torch.as_tensor(self.conn_np, device=dev)
-        gN = torch.as_tensor(self.grad_N, device=dev)
-        vol = torch.as_tensor(self.vol, device=dev)
+        conn_blk = self.local(self.conn_np)
+        self.conn = torch.as_tensor(conn_blk, device=dev)
+        gN = torch.as_tensor(self.local(self.grad_N), device=dev)
+        vol = torch.as_tensor(self.local(self.vol), device=dev)
         self._gN = {F64: gN, F32: gN.to(F32)}                     # (E, 4, 3)
         self._vol = {F64: vol, F32: vol.to(F32)}                  # (E,)
-        self.gather = _PartSums(self.conn_np, D, self.n_nodes, dev)
+        self.gather = _PartSums(conn_blk, mesh.parts_per_rank, self.n_nodes,
+                                dev, self.comm)
+
+    # -- the element blocks of the ranks ----------------------------------- #
+    def local(self, arr):
+        """This rank's block of a padded element array (the array itself on
+        one rank)."""
+        if self.world == 1 or arr.shape[0] != self.n_elems_padded:
+            return arr
+        return arr[self.block]
 
 
 class ShardedMomentumKernel(_ShardedGeometry):
     """Counterpart of :class:`~safeincave_torch.fem.kernels.MomentumKernel`
-    whose assemblies are per-part sums followed by the sum over the parts.
-    Tangents stay in the (E, 6, 6) layout (``prep`` is the identity), and no
-    assembled or hand-written operator is attached, so the solver takes
+    whose assemblies are per-part sums followed by the sum over the parts
+    and the ranks.  Element arrays in and out are the rank's block; nodal
+    vectors are whole.  ``global_sum``, ``global_max``, ``gather_elems``
+    and ``replicate`` (:class:`~safeincave_torch.parallel.dist.RankOps`)
+    carry reductions, element fields and the preconditioner arrays across
+    the ranks (on :class:`MomentumKernel` they are the identity).
+    Tangents stay in the (E, 6, 6) layout (``prep`` is the identity), and
+    no assembled or hand-written operator is attached, so the solver takes
     ``matvec`` for both precisions."""
 
     band = dia = blockell = None
@@ -169,8 +239,8 @@ class ShardedMomentumKernel(_ShardedGeometry):
 
     def block_diagonal(self, C):
         """Nodal 3x3 diagonal blocks of A(C) (N, 3, 3), f64, on the
-        device."""
-        C = torch.as_tensor(C, dtype=F64, device=self.device)
+        device, of the whole padded C (its rank block is used)."""
+        C = torch.as_tensor(self.local(C), dtype=F64, device=self.device)
         eps6 = self._eps6(F64)
         _, vol = self.geom(F64)
         sig6 = torch.einsum("ekl,eajl->eajk", C, eps6)
@@ -191,7 +261,7 @@ class ShardedMomentumKernel(_ShardedGeometry):
     # -- host assembly for the preconditioners ---------------------------- #
     def element_stiffness(self, C) -> np.ndarray:
         """Per-element 12x12 stiffness blocks (E_pad, 4, 3, 4, 3), f64,
-        host; zero on padded cells."""
+        host, of the whole padded C; zero on padded cells."""
         return element_stiffness(self.grad_N, self.vol, C)
 
 
@@ -204,7 +274,7 @@ class ShardedHeatKernel(_ShardedGeometry, HeatKernel):
 
 
 def _check_device(eq, mesh: PartMesh):
-    if torch.device(mesh.device) != eq.device:
+    if not _same_device(mesh.device, eq.device):
         raise ValueError(f"the part mesh is on {mesh.device}, the equation "
                          f"on {eq.device}")
 
@@ -219,13 +289,13 @@ def shard_tm(eq, heat, mesh: PartMesh | None = None, axis: str = "e",
     if mesh is None:
         mesh = make_device_mesh(axis=axis)
     shard_equation(eq, mesh=mesh, axis=axis, mode=mode)
-    heat.kernel = ShardedHeatKernel(heat.grid, mesh, axis)
-    heat.n_elems = heat.kernel.n_elems
-    n_pad = heat.kernel.n_pad
+    kern = heat.kernel = ShardedHeatKernel(heat.grid, mesh, axis)
+    heat.n_elems = kern.n_elems
     for name in ("k", "rho", "cp"):
         arr = getattr(heat, name)
-        if arr.shape[0] != heat.kernel.n_elems:
-            setattr(heat, name, pad_elem_array(arr, n_pad))
+        if arr.shape[0] == kern.n_elems_orig:
+            arr = pad_elem_array(arr, kern.n_pad)
+        setattr(heat, name, kern.local(arr))
     return eq, heat
 
 
@@ -235,8 +305,11 @@ def shard_equation(eq, mesh: PartMesh | None = None, axis: str = "e",
 
     Pads every per-element array (kernel geometry, material operators and
     parameters, element states, stress and strain fields) to a multiple of
-    the part count, as the JAX package pads them, and swaps in the
-    :class:`ShardedMomentumKernel`.
+    the part count, as the JAX package pads them, keeps this rank's block
+    of it, and swaps in the :class:`ShardedMomentumKernel`.  What is built
+    once per wiring from the whole mesh (the dense preconditioner, the
+    two-level coarse space) is built alike on every rank from gathered
+    arrays.
 
     ``mode`` selects the linear solve's communication pattern:
 
@@ -258,7 +331,7 @@ def shard_equation(eq, mesh: PartMesh | None = None, axis: str = "e",
     eq.n_elems = kern.n_elems
 
     def pad(arr, mode="edge"):
-        return pad_elem_array(arr, n_pad, mode)
+        return kern.local(pad_elem_array(arr, n_pad, mode))
 
     # zero stress and strain on padded cells: every constitutive model
     # guards the zero-stress state

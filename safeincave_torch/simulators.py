@@ -28,7 +28,7 @@ from .checkpoint import save_checkpoint
 from .fem.momentum import LinearMomentumBase
 from .metrics import StepMetrics
 from .output.screen import ScreenPrinter
-from .utils import to_numpy, voigt_to_tensor
+from .utils import is_main_process, to_numpy, voigt_to_tensor
 
 
 class Simulator(ABC):
@@ -324,26 +324,30 @@ class Simulator_M(Simulator):
 
     def _dump_diagnostics(self, t, dt):
         """NaN diagnostic dump to ``nan_diagnostic.npz`` in the working
-        directory, with the JAX package's keys."""
+        directory, with the JAX package's keys (element arrays gathered
+        from every rank of a multi-card run; rank 0 writes)."""
         eq = self.eq_mom
+        g = getattr(eq.kernel, "gather_elems", lambda x: x)
         diag = {
             "step": self.t_control.step_counter,
             "t": t,
             "dt": dt,
-            "stress": to_numpy(voigt_to_tensor(eq.sig_v)),
-            "eps_tot": to_numpy(voigt_to_tensor(eq.eps_tot_v)),
-            "C_inv": to_numpy(eq.mat.C_inv),
+            "stress": to_numpy(voigt_to_tensor(g(eq.sig_v))),
+            "eps_tot": to_numpy(voigt_to_tensor(g(eq.eps_tot_v))),
+            "C_inv": to_numpy(g(eq.mat.C_inv)),
         }
         if hasattr(eq.mat, "G"):
-            diag["G_total"] = to_numpy(eq.mat.G)
+            diag["G_total"] = to_numpy(g(eq.mat.G))
         for idx, e in enumerate(eq.mat.elems_ne):
             prefix = f"elem_{idx}_{e.name}"
-            diag[f"{prefix}_eps_ne_rate"] = to_numpy(e.state["rate"])
-            diag[f"{prefix}_G"] = to_numpy(e.state["G"])
-            diag[f"{prefix}_B"] = to_numpy(e.state["B"])
+            diag[f"{prefix}_eps_ne_rate"] = to_numpy(g(e.state["rate"]))
+            diag[f"{prefix}_G"] = to_numpy(g(e.state["G"]))
+            diag[f"{prefix}_B"] = to_numpy(g(e.state["B"]))
             for key in ("alpha", "qsi", "Fvp", "r", "h", "zeta"):
                 if key in e.state:
-                    diag[f"{prefix}_{key}"] = to_numpy(e.state[key])
+                    diag[f"{prefix}_{key}"] = to_numpy(g(e.state[key]))
+        if not is_main_process():
+            return
         path = os.path.join(os.getcwd(), "nan_diagnostic.npz")
         np.savez(path, **diag)
         print(f"[SOLVER] All {self.max_dt_cuts} retries failed at step "

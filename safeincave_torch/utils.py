@@ -57,13 +57,30 @@ def pad_elem_array(arr, n_pad: int, mode: str = "edge"):
 def unpad_elems(eq, x) -> np.ndarray:
     """``x`` as a host numpy array, with the element padding of a sharded
     equation (parallel/sharding.py pads ``n_elems`` to a multiple of the
-    part count; ``n_elems_orig`` keeps the true count) sliced off."""
+    part count; ``n_elems_orig`` keeps the true count) sliced off.  An
+    element array of an equation split over ranks (this rank's block) is
+    gathered from every rank first, so every rank must make the call."""
+    kern = getattr(eq, "kernel", None)
+    n_local = getattr(eq, "n_elems", None)
+    gather = getattr(kern, "gather_elems", None)
+    if (gather is not None and n_local is not None and np.ndim(x) >= 1
+            and np.shape(x)[0] == n_local):
+        x = gather(x)
     a = to_numpy(x)
-    n_pad = getattr(eq, "n_elems", None)
+    n_pad = getattr(kern, "n_elems_padded", n_local)
     n_true = getattr(eq, "n_elems_orig", n_pad)
     if a.ndim >= 1 and n_pad is not None and a.shape[0] == n_pad > n_true:
         return a[:n_true]
     return a
+
+
+def is_main_process() -> bool:
+    """Whether this process writes files: rank 0 of a ``torch.distributed``
+    run, or a process outside one."""
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank() == 0
+    return True
 
 
 def read_json(file_name: str) -> dict:
