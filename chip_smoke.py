@@ -1890,7 +1890,6 @@ def halo_phase(st, cfg, dev, card):
                 f"process): elastic u, 3-step u, sig_v and step rows equal "
                 f"to the stacked 8-part run bit for bit; "
                 f"{w1['counts']['allreduce']} all-reduces, "
-                f"{w1['counts']['broadcast']} broadcast, "
                 f"{w1['counts']['rounds']} exchange rounds; the child "
                 f"{w1_s:.1f} s")
     say("halo", f"psum vs unsharded box17: u {d_pu:.2e}, sig_v {d_ps:.2e} "

@@ -72,17 +72,15 @@ def load_checkpoint(path: str, eq, t_control=None, heat_eq=None) -> dict:
     ``u_last_step`` (a JAX-package checkpoint) the next step's initial
     guess starts from ``u``.  Returns the ``extra_*`` entries with the
     prefix stripped."""
-    n_pad = getattr(eq.kernel, "n_pad", 0)
-    local = getattr(eq.kernel, "local", lambda a: a)
+    kern = eq.kernel
 
     def to(a, mode=None):
-        """A host array as a tensor; an element array (``mode`` given)
-        padded as the equation's kernel pads, and its rank's block."""
+        """A host array as a tensor; an element array (``mode`` given,
+        saved at the true element count) padded as the equation's kernel
+        pads, and its rank's block."""
         a = np.array(a)    # a writable copy
-        if mode and n_pad and a.ndim >= 1 and a.shape[0] == eq.n_elems_orig:
-            a = pad_elem_array(a, n_pad, mode)
         if mode:
-            a = local(a)
+            a = kern.local(pad_elem_array(a, kern.n_pad, mode))
         dtype = torch.bool if a.dtype == np.bool_ else torch.float64
         return torch.as_tensor(a, dtype=dtype, device=eq.device)
 

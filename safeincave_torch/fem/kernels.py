@@ -127,14 +127,63 @@ def scatter(fe_s, plan: ScatterPlan):
     return segment_sum(flat, plan).T.contiguous()
 
 
-class MomentumKernel:
+class RankOps:
+    """The element layout of a kernel over the ranks of a multi-card run,
+    and the reductions across them.
+
+    An element-sharded kernel (parallel/sharding.py) pads ``n_elems_orig``
+    elements by ``n_pad`` to ``n_elems_padded`` and holds the rank's block
+    ``block`` of them; ``comm`` is the process group
+    (:mod:`~safeincave_torch.parallel.dist`) and ``world`` its size.  With
+    ``comm`` None (every element on this device, as on the unsharded
+    kernels) each method is the identity."""
+
+    comm = None
+    world = 1
+    block = slice(None)
+
+    def local(self, arr):
+        """This rank's block of a padded element array."""
+        return arr if self.world == 1 else arr[self.block]
+
+    def gather_elems(self, x):
+        """The padded element array whose rank blocks are ``x`` (a tensor
+        or a numpy array, returned as the same), gathered from every
+        rank."""
+        if self.comm is None or self.world == 1:
+            return x
+        if isinstance(x, torch.Tensor):
+            return self.comm.all_gather(x)
+        return self.comm.all_gather(
+            torch.as_tensor(x, device=self.comm.device)).cpu().numpy()
+
+    def global_sum(self, t):
+        """The sum over the ranks of ``t``, a partial reduction over this
+        rank's share."""
+        return t if self.comm is None else self.comm.allreduce_sum(t)
+
+    def global_max(self, t):
+        """The maximum over the ranks of ``t``."""
+        return t if self.comm is None else self.comm.allreduce_max(t)
+
+    def from_rank0(self, build):
+        """``build()``, a tuple of tensors and picklable values, made on
+        rank 0 alone and sent to every rank, so that what is built once
+        from the whole mesh holds the same bits everywhere."""
+        if self.comm is None or self.world == 1:
+            return build()
+        return self.comm.from_rank0(build)
+
+
+class MomentumKernel(RankOps):
     """Vector CG1 elasticity operator pieces for one mesh on one device."""
 
     def __init__(self, grid, device):
         self.grid = grid
         self.device = torch.device(device)
         self.n_nodes = grid.n_nodes
-        self.n_elems = grid.n_elems
+        self.n_elems = self.n_elems_orig = self.n_elems_padded = grid.n_elems
+        self.n_pad = 0
         # host copies for the preconditioner builds
         self.conn_np = np.asarray(grid.conn, dtype=np.int64)
         self.grad_N = np.asarray(grid.grad_N)                     # (E, 4, 3)
@@ -188,14 +237,6 @@ class MomentumKernel:
     def geom(self, dtype):
         """(grad_N (4, 3, E), vol (E,)) in ``dtype``."""
         return self._gN[dtype], self._vol[dtype]
-
-    # -- reductions over the ranks of an element-sharded kernel
-    # (parallel/sharding.py); on one device every element is here
-    @staticmethod
-    def global_sum(t):
-        return t
-
-    global_max = gather_elems = replicate = global_sum
 
     # ------------------------------------------------------------------ #
     def prep(self, CT: torch.Tensor) -> torch.Tensor:
@@ -302,7 +343,7 @@ class NodeGather:
         return flat[self.idx].sum(1)
 
 
-class HeatKernel:
+class HeatKernel(RankOps):
     """Scalar P1 heat operator pieces for one mesh on one device; every
     method computes in the dtype of the field (or coefficient) it is
     given."""
@@ -311,7 +352,8 @@ class HeatKernel:
         self.grid = grid
         self.device = torch.device(device)
         self.n_nodes = grid.n_nodes
-        self.n_elems = grid.n_elems
+        self.n_elems = self.n_elems_orig = self.n_elems_padded = grid.n_elems
+        self.n_pad = 0
         conn = np.asarray(grid.conn, dtype=np.int64)
         self.conn = torch.as_tensor(conn, device=self.device)
         gN = torch.as_tensor(np.asarray(grid.grad_N), device=self.device)

@@ -211,8 +211,9 @@ def build_preconditioner(kern, C, mask, settings: SolverSettings):
     """(P, apply) for the masked operator, built once per wiring from the
     constant elastic stiffness ``C`` and the Dirichlet ``mask``;
     ``apply(P, r, mask)`` works in r's dtype.  On an element-sharded
-    kernel ``C`` is gathered from every rank first, so that each rank
-    builds the same whole operator."""
+    kernel ``C`` is gathered from every rank first; the dense and coarse
+    inverses, built from the whole mesh, are made on rank 0 and broadcast,
+    and the block diagonal is summed over the ranks."""
     C = kern.gather_elems(C)
     C = C.cpu().numpy() if isinstance(C, torch.Tensor) else np.asarray(C)
     mask = (mask.cpu().numpy() if isinstance(mask, torch.Tensor)
@@ -223,7 +224,8 @@ def build_preconditioner(kern, C, mask, settings: SolverSettings):
                 and 3 * kern.n_nodes <= settings.dense_max_dofs else "2level")
 
     if mode == "dense":
-        inv = _dense_inverse_precond(kern, C, mask)
+        (inv,) = kern.from_rank0(
+            lambda: (_dense_inverse_precond(kern, C, mask),))
         if not settings.precond_bf16:
             def apply_dense(P, r, m):
                 (inv,) = P
@@ -247,7 +249,8 @@ def build_preconditioner(kern, C, mask, settings: SolverSettings):
     blk_inv = _block_jacobi_arrays(kern, C, mask)
     if mode == "2level":
         G = settings.coarse_agg
-        coarse_inv, n_agg, pad = _coarse_space(kern, C, mask, G)
+        coarse_inv, n_agg, pad = kern.from_rank0(
+            lambda: _coarse_space(kern, C, mask, G))
 
         def apply_2l(P, r, m):
             blk_inv, coarse_inv = P
@@ -588,13 +591,18 @@ class LinearMomentumBase:
     def run_after_solve(self):
         """User extension hook."""
 
+    # -- output fields: the whole mesh at its true element count, gathered
+    # from every rank of a sharded equation (every rank reads them)
     @property
     def sig(self):
-        return voigt_to_tensor(self.sig_v)
+        return voigt_to_tensor(self._whole(self.sig_v))
 
     @property
     def eps_tot(self):
-        return voigt_to_tensor(self.eps_tot_v)
+        return voigt_to_tensor(self._whole(self.eps_tot_v))
+
+    def _whole(self, x):
+        return self.kernel.gather_elems(x)[:self.kernel.n_elems_orig]
 
 
 class LinearMomentum(LinearMomentumBase):
@@ -725,10 +733,8 @@ class LinearMomentum(LinearMomentumBase):
                         self._halo, self.mat.C, self.bc.mask,
                         G=self.solver.coarse_agg)
             else:
-                P, apply_M = build_preconditioner(
+                self._precond = build_preconditioner(
                     self.kernel, self.mat.C, self.bc.mask, self.solver)
-                self._precond = (tuple(self.kernel.replicate(p) for p in P),
-                                 apply_M)
         return self._precond
 
     def _get_solver(self):

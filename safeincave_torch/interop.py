@@ -4,18 +4,21 @@
 and of a heat equation beside it (it only converts arrays with numpy, so it
 needs no JAX import), and ``load_numpy_state`` places such a state on the
 port's equations at their device and dtype.  Element arrays of a sharded
-equation are read at the true element count (gathered from every rank of a
-multi-card run, so every rank makes the call).  Tests use the pair to start
-both packages from the same state.
+equation are read at the true element count (a port equation's gathered
+from every rank of a multi-card run, so every rank makes the call).  Tests
+use the pair to start both packages from the same state.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .fem.momentum import LinearMomentumBase
 from .utils import to_numpy, unpad_elems
 
-FIELDS = ("u", "sig_v", "eps_tot_v", "_u_last_step", "Temp", "T0")
+NODAL = ("u", "_u_last_step")
+ELEMENT = ("sig_v", "eps_tot_v", "Temp", "T0")
+FIELDS = NODAL + ELEMENT
 THERMAL = ("density", "cp", "k", "alpha_th")
 
 
@@ -24,18 +27,29 @@ def numpy_state(eq, heat=None) -> dict:
     "states", "params", "thermo", "thermal", "heat"}: fields, each inelastic
     element's state and parameters, each thermoelastic element's expansion
     coefficient, the material's thermal properties (those that are set) and,
-    with ``heat``, its T and T_old."""
-    def _np(x):
-        return unpad_elems(eq, x)
+    with ``heat``, its T and T_old.  ``density`` is an element array of the
+    equation (``shard_equation`` pads it); the other thermal properties are
+    read as they are set."""
+    if isinstance(eq, LinearMomentumBase):
+        def elem(x):
+            return unpad_elems(eq, x)
+    else:
+        # the JAX package's element arrays are whole, padded to n_elems by
+        # its shard_equation
+        n_true = getattr(eq, "n_elems_orig", eq.n_elems)
 
-    d = {k: _np(getattr(eq, k)) for k in FIELDS
+        def elem(x):
+            return to_numpy(x)[:n_true]
+
+    d = {k: to_numpy(getattr(eq, k)) for k in NODAL
          if getattr(eq, k, None) is not None}
+    d.update({k: elem(getattr(eq, k)) for k in ELEMENT})
     elems = eq.mat.elems_ne
-    d["states"] = [{k: _np(v) for k, v in e.state.items()} for e in elems]
-    d["params"] = [{k: _np(v) for k, v in e.params.items()} for e in elems]
-    d["thermo"] = [_np(th.alpha) for th in getattr(eq.mat, "elems_th", [])]
-    d["thermal"] = {k: _np(getattr(eq.mat, k)) for k in THERMAL
-                    if hasattr(eq.mat, k)}
+    d["states"] = [{k: elem(v) for k, v in e.state.items()} for e in elems]
+    d["params"] = [{k: elem(v) for k, v in e.params.items()} for e in elems]
+    d["thermo"] = [elem(th.alpha) for th in getattr(eq.mat, "elems_th", [])]
+    d["thermal"] = {k: (elem if k == "density" else to_numpy)(
+        getattr(eq.mat, k)) for k in THERMAL if hasattr(eq.mat, k)}
     if heat is not None:
         d["heat"] = {"T": to_numpy(heat.T), "T_old": to_numpy(heat.T_old)}
     return d

@@ -5,9 +5,11 @@ one ``{out}/{field}/{field}.h5`` + ``{field}.xdmf`` per registered field,
 the mesh written once, one dataset per kept save, the source ``.msh``
 copied to ``{out}/mesh/``.  Fields are looked up as attributes of the
 equation at save time and fetched to the host with
-``.detach().cpu().numpy()``; element fields of a sharded equation lose
-their padding there.  ``h5py`` is imported when the files are
-opened (:meth:`SaveFields.initialize`), so the solver never needs it.
+``.detach().cpu().numpy()``; the output fields (``u``, ``sig``,
+``eps_tot``, ``p_elems``, ``q_elems``, ...) cover the whole mesh at its
+true element count on every rank of a sharded equation.  ``h5py`` is
+imported when the files are opened (:meth:`SaveFields.initialize`), so the
+solver never needs it.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import shutil
 
 import numpy as np
 
-from ..utils import is_main_process, unpad_elems
+from ..utils import is_main_process, to_numpy
 
 
 def _field_layout(arr, n_nodes, n_elems):
@@ -84,7 +86,7 @@ class SaveFields:
             self._times[field_name] = []
 
     def _get_field(self, field_name):
-        return unpad_elems(self.eq, getattr(self.eq, field_name))
+        return to_numpy(getattr(self.eq, field_name))
 
     def calls_until_next_keep(self) -> int:
         """How many ``save_fields`` calls until one actually writes (>= 1):

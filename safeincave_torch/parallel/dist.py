@@ -12,8 +12,9 @@ parallel layer needs these collectives, which :class:`Comm` wraps:
   into the global nodal layout;
 * ``exchange``: one halo round, a ``batch_isend_irecv`` of packed rows with
   every peer the round pairs this rank with (the ``ppermute``);
-* ``broadcast``: rank 0's copy of what every rank builds alike (the
-  preconditioner arrays), so that replicated state holds the same bits.
+* ``from_rank0``: what is built once from the whole mesh (the dense and
+  coarse preconditioner inverses), made on rank 0 and broadcast, so that
+  replicated state holds the same bits on every rank.
 
 On CUDA devices the group is NCCL, on the CPU gloo.  Users start the ranks
 with ``torchrun --standalone --nproc_per_node W script.py`` and call
@@ -82,12 +83,29 @@ class Comm:
         is_bool = t.dtype == torch.bool
         src = (t.to(torch.uint8) if is_bool else t).contiguous()
         out = src.new_empty((self.world * src.shape[0], *src.shape[1:]))
-        # all_gather_single is all_gather_into_tensor's newer name
-        gather = getattr(dist, "all_gather_single", None) \
-            or dist.all_gather_into_tensor
-        gather(out, src, group=self.group)
+        dist.all_gather_into_tensor(out, src, group=self.group)
         self.counts["all_gather"] += 1
         return out.bool() if is_bool else out
+
+    def from_rank0(self, build):
+        """``build()``, a tuple of tensors and picklable values, made on
+        rank 0 alone: the other ranks receive each tensor into a buffer of
+        rank 0's shape, strides and dtype, and the values pickled."""
+        out = build() if self.rank == 0 else None
+        meta = [None if out is None else [
+            ("tensor", tuple(v.shape), v.stride(), v.dtype)
+            if isinstance(v, torch.Tensor) else ("value", v) for v in out]]
+        dist.broadcast_object_list(meta, 0, group=self.group,
+                                   device=self.device)
+        got = []
+        for i, (kind, *m) in enumerate(meta[0]):
+            if kind == "value":
+                got.append(m[0])
+                continue
+            t = out[i] if out is not None else torch.empty_strided(
+                m[0], m[1], dtype=m[2], device=self.device)
+            got.append(self.broadcast(t))
+        return tuple(got)
 
     def exchange(self, sends, recvs):
         """One round of point-to-point messages: ``sends`` is a list of
@@ -117,36 +135,6 @@ class Comm:
         self.allreduce_sum(torch.zeros(1, device=self.device))
 
 
-class RankOps:
-    """Reductions and gathers over the ranks, for an object with ``comm``
-    (None: every part on this device) and ``world``."""
-
-    def global_sum(self, t):
-        """The sum over the ranks of ``t``, a partial reduction over this
-        rank's share."""
-        return t if self.comm is None else self.comm.allreduce_sum(t)
-
-    def global_max(self, t):
-        """The maximum over the ranks of ``t``."""
-        return t if self.comm is None else self.comm.allreduce_max(t)
-
-    def replicate(self, t):
-        """``t`` as rank 0 built it, on every rank: what every rank builds
-        alike then holds the same bits everywhere."""
-        return t if self.comm is None else self.comm.broadcast(t)
-
-    def gather_elems(self, x):
-        """The padded element array whose rank blocks are ``x`` (a tensor
-        or a numpy array, returned as the same), gathered from every rank;
-        ``x`` itself on one rank."""
-        if self.comm is None or self.world == 1:
-            return x
-        if isinstance(x, torch.Tensor):
-            return self.comm.all_gather(x)
-        return self.comm.all_gather(
-            torch.as_tensor(x, device=self.comm.device)).cpu().numpy()
-
-
 def _in_place(t, collective):
     """Run an in-place ``collective`` on ``t`` and return ``t``.  A
     non-contiguous ``t`` goes through a contiguous copy and keeps its
@@ -164,8 +152,7 @@ def current() -> Comm | None:
     return _current
 
 
-def init_parts(backend: str | None = None, device=None,
-               timeout: timedelta | float = DEFAULT_TIMEOUT,
+def init_parts(device=None, timeout: timedelta | float = DEFAULT_TIMEOUT,
                rank: int | None = None, world: int | None = None,
                store=None, local_rank: int | None = None) -> Comm:
     """Join the process group of a multi-card run and return this rank's
@@ -204,9 +191,9 @@ def init_parts(backend: str | None = None, device=None,
                                f"card {index}, {n_cards} visible")
         dev = torch.device("cuda", index)
         torch.cuda.set_device(dev)
-        backend = backend or "nccl"
+        backend = "nccl"
     else:
-        backend = backend or "gloo"
+        backend = "gloo"
     if dist.is_initialized():
         raise RuntimeError("init_parts: this process already is in a "
                            "process group")

@@ -36,10 +36,9 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from ..fem.kernels import F32, F64, NodeGather, element_stiffness
+from ..fem.kernels import F32, F64, NodeGather, RankOps, element_stiffness
 from ..fem.momentum import _blk_apply, _coarse_space
 from ..mesh.native import morton_order, rcb_partition
-from .dist import RankOps
 
 # Voigt index of tensor entry (i, j), row-major, tensorial [xx yy zz xy xz yz]
 _T2V = [0, 3, 4, 3, 1, 5, 4, 5, 2]
@@ -642,7 +641,8 @@ def halo_two_level(halo: HaloMomentumSolver, C, mask, G: int = 16):
     over a static table, so compact aggregates cost nothing).  The coarse
     matrix R A R^T is assembled once per wiring from the elastic element
     stiffness of the unpadded mesh (``C`` gathered from every rank) and
-    inverted in f32 (``fem.momentum._coarse_space``), alike on every rank.
+    inverted in f32 (``fem.momentum._coarse_space``) on rank 0, which
+    broadcasts it.
     Each apply restricts this rank's rows and all-reduces the (n_agg, 3)
     coarse residual."""
     grid = halo.grid
@@ -663,10 +663,9 @@ def halo_two_level(halo: HaloMomentumSolver, C, mask, G: int = 16):
                else np.asarray(mask))
     # C may carry the element padding of shard_equation: the coarse
     # assembly runs on the real mesh
-    coarse_inv, n_agg, _ = _coarse_space(kern_view, C_np[:grid.n_elems],
-                                         mask_np.astype(np.float64), G,
-                                         agg_of_node=agg_of_node)
-    coarse_inv = halo.replicate(coarse_inv)
+    coarse_inv, n_agg, _ = halo.from_rank0(lambda: _coarse_space(
+        kern_view, C_np[:grid.n_elems], mask_np.astype(np.float64), G,
+        agg_of_node=agg_of_node))
 
     # padded row -> aggregate (padding rows to a dump slot n_agg), this
     # rank's rows

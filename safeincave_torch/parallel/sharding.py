@@ -30,7 +30,7 @@ import torch
 
 from .._device import default_device
 from . import dist
-from ..fem.kernels import (F32, F64, HeatKernel, NodeGather,
+from ..fem.kernels import (F32, F64, HeatKernel, NodeGather, RankOps,
                            element_stiffness)
 from ..utils import pad_elem_array, tensor_to_voigt, voigt_to_tensor
 
@@ -125,7 +125,7 @@ class _PartSums:
         return out if self.comm is None else self.comm.allreduce_sum(out)
 
 
-class _ShardedGeometry(dist.RankOps):
+class _ShardedGeometry(RankOps):
     """Padded element geometry of one grid over a part mesh: the host
     arrays (for the preconditioner builds) whole, the device tensors this
     rank's block ``block`` of ``n_elems`` elements."""
@@ -162,23 +162,16 @@ class _ShardedGeometry(dist.RankOps):
         self.gather = _PartSums(conn_blk, mesh.parts_per_rank, self.n_nodes,
                                 dev, self.comm)
 
-    # -- the element blocks of the ranks ----------------------------------- #
-    def local(self, arr):
-        """This rank's block of a padded element array (the array itself on
-        one rank)."""
-        if self.world == 1 or arr.shape[0] != self.n_elems_padded:
-            return arr
-        return arr[self.block]
-
 
 class ShardedMomentumKernel(_ShardedGeometry):
     """Counterpart of :class:`~safeincave_torch.fem.kernels.MomentumKernel`
     whose assemblies are per-part sums followed by the sum over the parts
     and the ranks.  Element arrays in and out are the rank's block; nodal
     vectors are whole.  ``global_sum``, ``global_max``, ``gather_elems``
-    and ``replicate`` (:class:`~safeincave_torch.parallel.dist.RankOps`)
-    carry reductions, element fields and the preconditioner arrays across
-    the ranks (on :class:`MomentumKernel` they are the identity).
+    and ``from_rank0`` (:class:`~safeincave_torch.fem.kernels.RankOps`)
+    carry reductions, element fields and the whole-mesh preconditioner
+    builds across the ranks (on :class:`MomentumKernel` they are the
+    identity).
     Tangents stay in the (E, 6, 6) layout (``prep`` is the identity), and
     no assembled or hand-written operator is attached, so the solver takes
     ``matvec`` for both precisions."""
@@ -308,8 +301,8 @@ def shard_equation(eq, mesh: PartMesh | None = None, axis: str = "e",
     the part count, as the JAX package pads them, keeps this rank's block
     of it, and swaps in the :class:`ShardedMomentumKernel`.  What is built
     once per wiring from the whole mesh (the dense preconditioner, the
-    two-level coarse space) is built alike on every rank from gathered
-    arrays.
+    two-level coarse space) is built on rank 0 from gathered arrays and
+    broadcast.
 
     ``mode`` selects the linear solve's communication pattern:
 

@@ -327,7 +327,7 @@ class Simulator_M(Simulator):
         directory, with the JAX package's keys (element arrays gathered
         from every rank of a multi-card run; rank 0 writes)."""
         eq = self.eq_mom
-        g = getattr(eq.kernel, "gather_elems", lambda x: x)
+        g = eq.kernel.gather_elems
         diag = {
             "step": self.t_control.step_counter,
             "t": t,

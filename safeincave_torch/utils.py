@@ -55,23 +55,13 @@ def pad_elem_array(arr, n_pad: int, mode: str = "edge"):
 
 
 def unpad_elems(eq, x) -> np.ndarray:
-    """``x`` as a host numpy array, with the element padding of a sharded
-    equation (parallel/sharding.py pads ``n_elems`` to a multiple of the
-    part count; ``n_elems_orig`` keeps the true count) sliced off.  An
-    element array of an equation split over ranks (this rank's block) is
-    gathered from every rank first, so every rank must make the call."""
-    kern = getattr(eq, "kernel", None)
-    n_local = getattr(eq, "n_elems", None)
-    gather = getattr(kern, "gather_elems", None)
-    if (gather is not None and n_local is not None and np.ndim(x) >= 1
-            and np.shape(x)[0] == n_local):
-        x = gather(x)
-    a = to_numpy(x)
-    n_pad = getattr(kern, "n_elems_padded", n_local)
-    n_true = getattr(eq, "n_elems_orig", n_pad)
-    if a.ndim >= 1 and n_pad is not None and a.shape[0] == n_pad > n_true:
-        return a[:n_true]
-    return a
+    """Element array ``x`` of a port equation, in its kernel's layout (on
+    a sharded equation this rank's block of the padded elements), as a
+    host numpy array over the true elements: gathered from every rank of a
+    multi-card run, so every rank must make the call, and the element
+    padding (parallel/sharding.py) sliced off."""
+    kern = eq.kernel
+    return to_numpy(kern.gather_elems(x))[:kern.n_elems_orig]
 
 
 def is_main_process() -> bool:

@@ -22,6 +22,14 @@ tests is checked for shape and dtype on both ends
    of max|ref| of the stacked port and of JAX's ``shard_equation``,
    fixed-point counts equal;
 4. ``mode="psum"`` on GridBox nx=3, D = 4 on W = 4, the same criteria;
+4b. the f32 sweep (``fp32_phase=True``: ``make_halo_solve32`` in halo
+   mode, the f32 solve on the summed assembly in psum mode) on GridBox
+   nx=3, D = 4 on W = 4: fixed-point counts and accepted sweeps equal to
+   the stacked port's, u and sig_v within 1e-8 of max|ref| of the stacked
+   port and of JAX's ``shard_equation`` with the same flag (the sweep's f32
+   inner products sum over the ranks in another order, and the fixed point
+   stops at 1e-8; tests/test_torch_halo.py holds W = 1 against JAX at
+   rtol 1e-8);
 5. ``shard_tm`` of ``tm_cube``, D = 4 on W = 2: u, sig_v and T within 1e-10
    of max|ref| of the stacked port, counts equal;
 6. the checkpoint of test 3's 4-rank run (rank 0 writes) equals the
@@ -169,8 +177,8 @@ def _stacked_steps(mode, nx, D, fp32_phase=False):
     return eq, u, st.utils.unpad_elems(eq, eq.sig_v), rows
 
 
-def _jax_steps(mode, nx, D):
-    eq = cfg.sharding_box(sc, nx=nx)
+def _jax_steps(mode, nx, D, fp32_phase=False):
+    eq = cfg.sharding_box(sc, nx=nx, fp32_phase=fp32_phase)
     n = eq.n_elems
     jax_shard(eq, jax_mesh(D), mode=mode)
     u, sig, rows = cfg.run_sharding_steps(eq)
@@ -223,6 +231,19 @@ def test_shard_equation_psum():
         worker.sharded_steps, W, "psum", 3, D, False)
     _held(ranks, u, sig, rows)
     _held(ranks, *ref)
+
+
+@pytest.mark.parametrize("mode", ["halo", "psum"])
+def test_shard_equation_fp32_sweep(mode):
+    D = W = 4
+    ranks, ((eq, u, sig, rows), ref) = _run_beside(
+        lambda: (_stacked_steps(mode, 3, D, True),
+                 _jax_steps(mode, 3, D, True)),
+        worker.sharded_steps, W, mode, 3, D, True)
+    assert eq.fp32_accepted > 0
+    assert all(out["fp32_accepted"] == eq.fp32_accepted for out in ranks)
+    _held(ranks, u, sig, rows, tol=1e-8)
+    _held(ranks, *ref, tol=1e-8)
 
 
 def test_shard_tm_two_ranks():

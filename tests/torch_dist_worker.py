@@ -103,14 +103,14 @@ def halo_layer(comm, nx, D):
 def sharded_steps(comm, mode, nx, D, fp32_phase, ckpt_dir=None):
     """``shard_equation`` of the sharding cube on GridBox(nx) in D parts
     over the ranks: the elastic response and 2 steps (u, sig_v at the true
-    element count, the rows).  With ``ckpt_dir``: a checkpoint of the
+    element count, the rows, the steps whose f32 sweep was accepted).  With ``ckpt_dir``: a checkpoint of the
     final state (rank 0 writes ck.npz), loaded into a fresh sharded
     equation and saved again (ck2.npz)."""
     eq = cfg.sharding_box(st, nx=nx, device="cpu", fp32_phase=fp32_phase)
     shard_equation(eq, make_device_mesh(D, comm=comm), mode=mode)
     u, _, rows = cfg.run_sharding_steps(eq)
     out = {"u": u, "sig": st.utils.unpad_elems(eq, eq.sig_v), "rows": rows,
-           "n_local": eq.n_elems}
+           "n_local": eq.n_elems, "fp32_accepted": eq.fp32_accepted}
     if ckpt_dir is not None:
         st.save_checkpoint(os.path.join(ckpt_dir, "ck.npz"), eq)
         comm.barrier()
