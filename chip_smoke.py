@@ -65,9 +65,11 @@ Phases, one line each; any failure raises and the exit code is non-zero:
              (the per-step flow); stage 2, operation 48 h at 1 h with u,
              p_elems and q_elems saved every 6 steps (fused chunks),
              StepMetrics to a file and a checkpoint every 12 steps.  The
-             outputs are ``SaveFields`` when h5py imports, else an in-memory
-             sink of the same protocol (``MemorySink``); either way the
-             saves must land at the expected times.  Every step converged,
+             outputs are ``SaveFields`` writing XDMF/HDF5 files into a
+             temporary directory through the port's own HDF5 writer (the
+             machine has no h5py), read back through the port's postproc:
+             the saves at the expected times, the last one equal to the
+             fields in memory bit for bit.  Every step converged,
              the band kernel launched in each stage, final fields within
              1e-6 max|ref| of tests/golden/torch_port_sim_cavern600.npz,
              equal converged flags, fixed-point counts within +-1; the
@@ -75,16 +77,19 @@ Phases, one line each; any failure raises and the exit code is non-zero:
              fresh equation, runs 2 more steps to the straight run's state
              bit for bit.  Prints ms/step per stage, the driver's share of
              stage 2 (time outside ``solve_time_steps``), band launches per
-             step and one checkpoint's save time.
+             step, the saves' host ms per save and .h5 bytes, and one
+             checkpoint's save time.
 9. json    - the JSON driver: ``safeincave_torch.app.sim_cli.main`` in a
              child process on the card (``--json-child``), on
              ``torch_port_configs.box_case`` over ``box_mesh(600, 600, 800,
              nx=17)`` written with the port's ``write_msh`` (natural order:
              block-DIA auto-selected, dense preconditioner, f32 sweep on).
-             The child swaps in ``MemorySink`` for ``SaveFields`` when h5py
-             is missing and prints its DIA launch count on its last line.
-             Exit 0, DIA launched, operation-stage u and p_elems within
-             1e-6 max|ref| of tests/golden/torch_port_json_box17.npz.
+             The child writes the case's XDMF/HDF5 outputs and prints its
+             DIA launch count and its timed saves on its last line.  Exit
+             0, DIA launched, operation-stage u and p_elems within 1e-6
+             max|ref| of tests/golden/torch_port_json_box17.npz; the
+             operation's u and p_elems files read back at 0-4 h, the last
+             save equal to the child's fields bit for bit.
 10. tm     - bench.py's thermo-mechanical configuration
              (``torch_port_configs.wire_tm``: Spring, Kelvin-Voigt,
              dislocation and pressure-solution creep, ``Thermoelastic``; a
@@ -92,7 +97,9 @@ Phases, one line each; any failure raises and the exit code is non-zero:
              equation, mixed-precision CG at rtol 1e-12) through
              ``Simulator_TM`` on the band-ordered cavern600 mesh: 24 steps
              at 1 h in fused chunks, u and T saved every 6 steps, a
-             checkpoint with the heat keys at step 12.  Every step
+             checkpoint with the heat keys at step 12 (``CheckpointSink``,
+             an output that writes the checkpoint).  u and T are written
+             as files and read back as in phase 8.  Every step
              converged, the band kernel launched, final u, sig_v and T
              within 1e-6 max|ref| of
              tests/golden/torch_port_tm_cavern600.npz, fixed-point counts
@@ -123,15 +130,19 @@ Phases, one line each; any failure raises and the exit code is non-zero:
              golden (tests/golden/torch_port_{lag,adaptive}_cavern600.npz),
              fixed-point counts within +-1 of it; the default way's 3-step
              state against torch_port_cavern600.npz as phase 5 holds it.
-13. yearly - examples/mechanics/nobian_yearly ``--full`` on the port
-             (``torch_port_configs.yearly_*``): the band-ordered 38k-tet
+13. yearly - examples/mechanics/nobian_yearly ``--full`` on the port,
+             built by the twin's ``build(full=True)``
+             (safeincave_torch/examples/mechanics/nobian_yearly/main.py;
+             the stages by ``torch_port_configs.yearly_*``, the sweep
+             off): the band-ordered 38k-tet
              cavern_interlayer_1200 mesh (7,669 nodes), the region-masked
              material (Spring, Kelvin-Voigt, dislocation creep in the salt,
              Mohr-Coulomb in the interlayers), precond "auto", sweep off;
              the equilibrium stage (30 days at 5 days), then the first 4
              days of data/operational_year.csv at 6 h through
              ``Simulator_M`` in fused chunks with u and q_elems saved every
-             8 steps, StepMetrics and one checkpoint at step 16.  The band
+             8 steps (files, read back as in phase 8), StepMetrics and one
+             checkpoint at step 16.  The band
              kernel and the dense preconditioner must be selected; prints
              the dense inverse's bytes and build time.  Every step
              converged, fields within 1e-6 max|ref| of
@@ -176,11 +187,44 @@ Phases, one line each; any failure raises and the exit code is non-zero:
              rtol 1e-8); and the app layer: ``InputFileBuilder`` writes and
              validates a 2-step case over box_mesh(nx=3),
              ``SimulatorRunner`` runs it in a child ``sim_cli`` on the card
-             (exit 0, streamed step rows, saves at 0, 1 and 2 h).  Per way
+             (exit 0, streamed step rows, the child's u file read back
+             through postproc with saves at 0, 1 and 2 h).  Per way
              (halo, psum, unsharded): ms/step, fixed-point and Krylov
              iterations per step, device launches per f64 and f32 matvec
              (torch.profiler) and rows received per matvec, each line with
              the card's name and power limit.
+
+17. examples - the examples tree on the card: each twin of
+             safeincave_torch/examples but thermomechanics/2_cavern (its
+             mesh is not in the repository) through its ``main`` with
+             ``device`` the card, in a temporary working directory, at its
+             own mesh and material and the arguments of
+             ``torch_port_configs.EXAMPLE_RUNS``: each script's defaults
+             but nobian_yearly, at its documented CI scale ("--dt-days 2",
+             the generated cavern; phase 13 runs ``--full``) cut in depth
+             from 365 to 120 days, then ``--resume`` from its step-32
+             checkpoint.  The f32 sweep is off, as in phases 8, 12 and 13:
+             on CUDA the scripts' "auto" turns it on, and on 1_triaxial it
+             changes the fixed-point counts and makes steps retry (PERF.md
+             section 7).  Per example: every step
+             converged, the files where the JAX script puts them (.xdmf
+             beside .h5, log.txt, ksp_log.jsonl, metrics.jsonl,
+             checkpoint.npz), the fields read back through postproc
+             within 1e-6 max|ref| of
+             tests/golden/torch_port_examples_<name>.npz (the JAX example
+             on the CPU at the same arguments), the save times equal, the
+             fixed-point counts within +-1, the DIA kernel launched in
+             1_triaxial, 2_cube_regions, thermomechanics/1_cube,
+             nobian_interlayer and nobian_yearly (the generated cavern is
+             in natural order).  The calibrations: calibrate_creep (300
+             Adam steps) and calibrate_labdata (400) through ``main``,
+             calibrate_triaxial and calibrate_multimodel with their Adam
+             steps cut to ``TRIAXIAL_FIT_STEPS`` / ``MULTIMODEL_STEPS``
+             (a step takes ~20 s and ~4 s on the card: 250 and 400 of them
+             would take hours); the fitted parameters within 1e-6 relative
+             of the golden.  Each line: ms/step (or s per fit), the kernel's
+             launches per step, ms per save and .h5 bytes, the card's name
+             and power limit.  Runs before phase 16.
 
 Phase 9 runs its case twice, with the f32 sweep as "auto" selects it and
 with ``fp32_phase=False``, and prints both lines.
@@ -226,12 +270,13 @@ runs phase 3 alone on the ``safeincave_torch`` package of another checkout
 the kernels in turns within one call; it prints the kernel JSON and the
 card, and no ``ok`` line.
 
-    python3 chip_smoke.py --phase tm|tm_box|lag|yearly|order|point|halo
+    python3 chip_smoke.py --phase tm|tm_box|lag|yearly|order|point|examples|halo
 
 builds the kernels and runs that phase alone (no ``ok`` line).
 """
 import argparse
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -653,64 +698,70 @@ def parity(tag, golden, u_elastic, rows3, u3, sig3):
              f"{golden['rows'][:, 0].tolist()}")
 
 
-class MemorySink:
-    """``SaveFields``' protocol in memory, for a machine without h5py:
-    ``saved`` holds (t, {field: host array}) at exactly the calls that
-    SaveFields would write."""
-
-    def __init__(self, eq, save_every: int = 1):
-        self.eq = eq
-        self.save_every = save_every
-        self.fields = []
-        self.saved = []
-        self._calls = 0
-
-    def set_output_folder(self, folder):
-        pass
-
-    def add_output_field(self, name, label):
-        self.fields.append((name, label))
-
-    def initialize(self):
-        pass
-
-    def calls_until_next_keep(self):
-        j = (1 - self._calls) % self.save_every
-        return j if j else self.save_every
-
-    def skip_calls(self, k):
-        if k >= self.calls_until_next_keep():
-            raise AssertionError("fused chunk crossed a save boundary")
-        self._calls += k
+@contextlib.contextmanager
+def timed_saves(st):
+    """While active, each ``SaveFields.save_fields`` call that writes
+    appends its host seconds to the returned list: the device synchronised
+    first, then the fields' ``.cpu()`` fetches and the HDF5 writes and
+    flushes.  Subclasses that call ``super().save_fields`` are timed too."""
+    import torch
+    cls = st.SaveFields
+    real = cls.save_fields
+    secs = []
 
     def save_fields(self, t):
-        keep = self._calls % self.save_every == 0
-        self._calls += 1
-        if keep:
-            self.saved.append((float(t), {
-                f: getattr(self.eq, f).detach().cpu().numpy()
-                for f, _ in self.fields}))
-
-    def save_mesh(self):
-        pass
-
-
-def have_h5py():
+        if self._call_count % self.save_every:
+            return real(self, t)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(self, t)
+        secs.append(time.perf_counter() - t0)
+        return out
+    cls.save_fields = save_fields
     try:
-        import h5py  # noqa: F401
-    except ImportError:
-        return False
-    return True
+        yield secs
+    finally:
+        cls.save_fields = real
 
 
-def saved_times(out, st):
-    """Times of the saves an output made: SaveFields read back through
-    the port's postproc, or a MemorySink's record."""
-    if isinstance(out, MemorySink):
-        return [t for t, _ in out.saved]
-    t, _, _, _ = st.PostProcessingTools.read_timeseries(
-        out.output_folder, out.fields[0][0])
-    return list(t)
+def h5_bytes(folder):
+    """Bytes of the .h5 files under ``folder``."""
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(folder) for f in files
+               if f.endswith(".h5"))
+
+
+def save_note(saves, folder):
+    """The output layer's numbers of a run: saves, host ms per save and
+    the bytes of its .h5 files."""
+    ms = 1e3 * sum(saves) / max(len(saves), 1)
+    return (f"{len(saves)} SaveFields writes at {ms:.2f} ms per save (host: "
+            f"synchronise, .cpu() fetch, HDF5 write and flush), "
+            f"{h5_bytes(folder)} bytes of .h5")
+
+
+def read_back(st, out, holders=None):
+    """Read an output's files back through the port's postproc: returns the
+    save times, and raises unless each field's last save equals the field
+    in memory bit for bit (``holders`` maps a field to the object holding
+    it; default the output's equation)."""
+    times = None
+    for field, _ in out.fields:
+        t, v, _, _ = st.PostProcessingTools.read_timeseries(
+            out.output_folder, field)
+        obj = (holders or {}).get(field, out.eq)
+        want = getattr(obj, field).detach().cpu().numpy()
+        got = v[-1].reshape(want.shape)
+        if got.dtype != want.dtype or got.tobytes() != want.tobytes():
+            raise AssertionError(
+                f"{out.output_folder}/{field}: the last save read back "
+                f"differs from the field in memory "
+                f"({np.abs(got - want).max():.3e})")
+        if times is not None and not np.array_equal(t, times):
+            raise AssertionError(f"{out.output_folder}: fields saved at "
+                                 f"different times")
+        times = t
+    return [float(x) for x in times]
 
 
 def within(tag, got, ref, tol):
@@ -725,7 +776,6 @@ def sim_phase(st, cfg, dev, tmp):
     stages."""
     import torch
     golden = np.load(GOLDEN.format("sim_cavern600"))
-    sink = "SaveFields (h5py)" if have_h5py() else "MemorySink (no h5py)"
     eq = cfg.cavern_example(st, dev, precond="auto")
     band = eq.kernel.band
     if band is None:
@@ -736,8 +786,7 @@ def sim_phase(st, cfg, dev, tmp):
                dict(checkpoint_every=12, checkpoint_path=ck)))
     total_launches, total_steps, notes = 0, 0, []
     for prefix, stage, fields, every, n_steps, extra in stages:
-        out = (st.SaveFields if have_h5py() else MemorySink)(
-            eq, save_every=every)
+        out = st.SaveFields(eq, save_every=every)
         out.set_output_folder(os.path.join(tmp, "sim", stage))
         for f in fields:
             out.add_output_field(f, f)
@@ -746,11 +795,12 @@ def sim_phase(st, cfg, dev, tmp):
         torch.cuda.synchronize()
         band.launches = 0
         t0 = time.perf_counter()
-        with contextlib.redirect_stdout(screen):
+        with contextlib.redirect_stdout(screen), timed_saves(st) as saves:
             tc = cfg.run_cavern_stage(st, eq, stage, [out], metrics=metrics,
                                       **extra)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
+        times = read_back(st, out)
         launches = band.launches
         n_rows = sum(1 for ln in screen.getvalue().splitlines()
                      if ln.split("|")[0].strip().isdigit())
@@ -772,9 +822,9 @@ def sim_phase(st, cfg, dev, tmp):
         errs = {f: within(f"sim {stage} {f}", rec[f], golden[f"{prefix}_{f}"],
                           1e-6) for f in fields}
         want = [k * tc.dt for k in range(0, n_steps + 1, every)]
-        if not np.allclose(saved_times(out, st), want, rtol=0, atol=1e-6):
-            raise AssertionError(f"sim {stage}: saves at "
-                                 f"{saved_times(out, st)}, want {want}")
+        if not np.allclose(times, want, rtol=0, atol=1e-6):
+            raise AssertionError(f"sim {stage}: saves at {times}, want "
+                                 f"{want}")
         walls = [r["wall_s"] for r in metrics.records]
         if prefix == "eq":
             steps_ms = 1e3 * float(np.mean(walls[1:]))
@@ -786,7 +836,8 @@ def sim_phase(st, cfg, dev, tmp):
             detail = (f"{steps_ms:.1f} ms/step in the stage, of which "
                       f"{solve_ms:.1f} in solve_time_steps and "
                       f"{steps_ms - solve_ms:.1f} in the driver (fused "
-                      f"chunks, saves, smoothing, metrics, checkpoints); "
+                      f"chunks, saves, smoothing, metrics, checkpoints: "
+                      f"{100 * (steps_ms - solve_ms) / steps_ms:.1f}%); "
                       f"{1e3 * float(np.mean(walls[every:])):.1f} ms/step "
                       f"in solve_time_steps after the first chunk (which "
                       f"builds the preconditioner)")
@@ -798,7 +849,9 @@ def sim_phase(st, cfg, dev, tmp):
                    f"{launches / n_steps:.1f} per step; vs golden "
                    + ", ".join(f"{f} {e:.2e}" for f, e in errs.items())
                    + f" (<=1e-6 max|ref|); {len(want)} saves at the expected "
-                   f"times; sink {sink}")
+                   f"times, read back through postproc, the last equal to "
+                   f"the fields in memory bit for bit; "
+                   + save_note(saves, out.output_folder))
         total_launches += launches
         total_steps += n_steps
 
@@ -842,14 +895,37 @@ def sim_phase(st, cfg, dev, tmp):
     return total_launches, total_launches / total_steps, notes
 
 
-class CheckpointSink(MemorySink):
-    """An output that saves nothing but writes one checkpoint, heat field
+class CheckpointSink:
+    """Phase 10's harness for a checkpoint mid-run: an output (``SaveFields``'
+    protocol) that saves no field but writes one checkpoint, heat field
     included, at its ``save_every``-th step; as an output it also makes the
     fused chunks end on that step."""
 
+    fields = ()
+
     def __init__(self, st, path, eq, heat, tc, save_every):
-        super().__init__(eq, save_every)
-        self.st, self.path, self.heat, self.tc = st, path, heat, tc
+        self.st, self.path, self.eq, self.heat, self.tc = \
+            st, path, eq, heat, tc
+        self.save_every = save_every
+        self._calls = 0
+
+    def set_output_folder(self, folder):
+        pass
+
+    def initialize(self):
+        pass
+
+    def save_mesh(self):
+        pass
+
+    def calls_until_next_keep(self):
+        j = (1 - self._calls) % self.save_every
+        return j if j else self.save_every
+
+    def skip_calls(self, k):
+        if k >= self.calls_until_next_keep():
+            raise AssertionError("fused chunk crossed a save boundary")
+        self._calls += k
 
     def save_fields(self, t):
         if self._calls == self.save_every:
@@ -938,7 +1014,6 @@ def tm_phase(st, cfg, tmp):
     import torch
     golden = np.load(GOLDEN.format("tm_cavern600"))
     n_steps, every = 24, 6
-    Sink = st.SaveFields if have_h5py() else MemorySink
     eq, heat = cfg.wire_tm(st, cfg.cavern600_grid(st), "Cavern",
                            precond="auto")
     band = eq.kernel.band
@@ -948,7 +1023,7 @@ def tm_phase(st, cfg, tmp):
                            final_time=float(n_steps), time_unit="hour")
     outs = []
     for obj, field in ((eq, "u"), (heat, "T")):
-        out = Sink(obj, save_every=every)
+        out = st.SaveFields(obj, save_every=every)
         out.set_output_folder(os.path.join(tmp, "tm", field))
         out.add_output_field(field, field)
         outs.append(out)
@@ -960,11 +1035,12 @@ def tm_phase(st, cfg, tmp):
     band.launches = 0
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()), \
-            recorded_tm_chunks(st, chunks, band):
+            recorded_tm_chunks(st, chunks, band), timed_saves(st) as saves:
         sim = st.Simulator_TM(eq, heat, tc, outs)
         sim.run()
     torch.cuda.synchronize()
     stage_s = time.perf_counter() - t0
+    times = [read_back(st, out) for out in outs[:2]]
     launches = band.launches
     P, _ = eq._get_precond()
     if not (len(P) == 1 and P[0].shape[0] == 3 * eq.grid.n_nodes):
@@ -986,10 +1062,10 @@ def tm_phase(st, cfg, tmp):
     errs = {k: within(f"tm {k}", v.cpu().numpy(), golden[k], 1e-6)
             for k, v in (("u", eq.u), ("sig_v", eq.sig_v), ("T", heat.T))}
     want = [k * HOUR for k in range(0, n_steps + 1, every)]
-    for out in outs[:2]:
-        if not np.allclose(saved_times(out, st), want, rtol=0, atol=1e-6):
-            raise AssertionError(f"tm: {out.fields[0][0]} saved at "
-                                 f"{saved_times(out, st)}, want {want}")
+    for out, got in zip(outs, times):
+        if not np.allclose(got, want, rtol=0, atol=1e-6):
+            raise AssertionError(f"tm: {out.fields[0][0]} saved at {got}, "
+                                 f"want {want}")
     step_launches = sum(n for _, _, n in chunks)
     say("tm", f"Simulator_TM on cavern600 (E={eq.n_elems}, "
               f"N={eq.grid.n_nodes}): {n_steps} steps converged in "
@@ -1001,7 +1077,9 @@ def tm_phase(st, cfg, tmp):
               f"chunks; vs golden "
               + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
               + f" (<=1e-6 max|ref|); u and T saved at {len(want)} expected "
-              f"times; sink {Sink.__name__}")
+              f"times, read back through postproc, the last equal to the "
+              f"fields in memory bit for bit; "
+              + save_note(saves, os.path.join(tmp, "tm")))
 
     # the heat step is deterministic: same inputs, same bits
     a = heat.step(heat.T, heat.T_old, 25 * HOUR, HOUR)
@@ -1033,7 +1111,7 @@ def tm_phase(st, cfg, tmp):
                             precond="auto")
     tc_t = st.TimeController(dt=1.0, initial_time=0.0, final_time=6.0,
                              time_unit="hour")
-    out = Sink(heat_t, save_every=every)
+    out = st.SaveFields(heat_t, save_every=every)
     out.set_output_folder(os.path.join(tmp, "t", "T"))
     out.add_output_field("T", "T")
     torch.cuda.synchronize()
@@ -1050,7 +1128,7 @@ def tm_phase(st, cfg, tmp):
               f"T_old, states); Simulator_T, 6 steps: "
               f"{1e3 * t_s / 6:.1f} ms/step, {heat_t.solver_stats[0]} CG it "
               f"in the last, T {e_T:.2e} vs golden (<=1e-8), saves at "
-              f"{saved_times(out, st)}")
+              f"{read_back(st, out)} read back")
     return launches, step_launches / n_steps
 
 
@@ -1126,10 +1204,9 @@ def tm_box_phase(st, cfg):
 
 def json_child(case_path, result_path, sweep="auto"):
     """``--json-child``: run sim_cli on the case with the recording
-    simulator (and MemorySink without h5py); write the stage records to
-    ``result_path`` and print the DIA launch count on the last line.
-    ``sweep="off"`` makes the driver's solver settings with
-    ``fp32_phase=False``."""
+    simulator; write the stage records to ``result_path`` and print the DIA
+    launch count and the timed saves on the last line.  ``sweep="off"``
+    makes the JSON driver's solver settings with ``fp32_phase=False``."""
     sys.path.insert(0, ROOT)
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import safeincave_torch as st
@@ -1138,14 +1215,11 @@ def json_child(case_path, result_path, sweep="auto"):
     from safeincave_torch.app import sim_cli
     records = []
     config.Simulator_M = cfg.recording_simulator(st, records)
-    if not have_h5py():
-        config.SaveFields = MemorySink
     if sweep == "off":
         config.SolverSettings = lambda **kw: st.SolverSettings(
             **{**kw, "fp32_phase": False})
-    print(f"sink: {'SaveFields (h5py)' if have_h5py() else 'MemorySink'}",
-          flush=True)
-    sim = sim_cli.main(["--json", case_path])
+    with timed_saves(st) as saves:
+        sim = sim_cli.main(["--json", case_path])
     dia = sim.mom_eq.kernel.dia
     if dia is None or not dia.structured:
         raise AssertionError("json: block-DIA with the structured assembly "
@@ -1154,7 +1228,8 @@ def json_child(case_path, result_path, sweep="auto"):
     for prefix, rec in zip(("eq", "op"), records):
         data.update({f"{prefix}_{k}": v for k, v in rec.items()})
     np.savez(result_path, **data)
-    print(json.dumps({"dia_launches": dia.launches}), flush=True)
+    print(json.dumps({"dia_launches": dia.launches, "saves": saves}),
+          flush=True)
 
 
 def json_phase(st, cfg, tmp):
@@ -1180,9 +1255,8 @@ def json_phase(st, cfg, tmp):
             raise AssertionError(f"json: sim_cli failed:\n"
                                  f"{proc.stdout[-3000:]}\n"
                                  f"{proc.stderr[-3000:]}")
-        lines = proc.stdout.strip().splitlines()
-        launches = json.loads(lines[-1])["dia_launches"]
-        sink = next(ln for ln in lines if ln.startswith("sink: "))[6:]
+        last = json.loads(proc.stdout.strip().splitlines()[-1])
+        launches = last["dia_launches"]
         if launches <= 0:
             raise AssertionError("json: the DIA kernel never launched")
         got = np.load(result)
@@ -1191,6 +1265,16 @@ def json_phase(st, cfg, tmp):
             raise AssertionError(f"json: non-converged steps {rows.tolist()}")
         errs = {f: within(f"json operation {f}", got[f"op_{f}"],
                           golden[f"op_{f}"], 1e-6) for f in ("u", "p_elems")}
+        out_op = os.path.join(tmp, "json_out", "operation")
+        for f in ("u", "p_elems"):
+            t, v, _, _ = st.PostProcessingTools.read_timeseries(out_op, f)
+            if v[-1].tobytes() != got[f"op_{f}"].reshape(v[-1].shape) \
+                    .tobytes():
+                raise AssertionError(f"json: the last {f} save read back "
+                                     f"differs from the field in memory")
+        if not np.allclose(t, [0.0, HOUR, 2 * HOUR, 3 * HOUR, 4 * HOUR],
+                           rtol=0, atol=1e-6):
+            raise AssertionError(f"json: operation saves at {t}")
         say("json", f"sim_cli --json on box17 (write_msh -> read_msh, "
                     f"E=29478, N=5832) in a child process, f32 sweep "
                     f"{sweep}: exit 0 in {secs:.1f} s (process start, build "
@@ -1201,7 +1285,10 @@ def json_phase(st, cfg, tmp):
                     f"{launches}, {launches / len(rows):.1f} per step; "
                     f"operation u {errs['u']:.2e}, p_elems "
                     f"{errs['p_elems']:.2e} vs golden (<=1e-6 max|ref|); "
-                    f"sink {sink}")
+                    f"operation u and p_elems read back through postproc at "
+                    f"{len(t)} times, the last equal to the fields in "
+                    f"memory bit for bit; "
+                    + save_note(last["saves"], os.path.join(tmp, "json_out")))
         if first is None:
             first = (launches, launches / len(rows))
     return first
@@ -1311,14 +1398,18 @@ def lag_phase(st, cfg):
     return launches_all, launches_all / steps_all
 
 
-def yearly_phase(st, cfg, tmp):
+def yearly_phase(st, cfg, dev, tmp):
     """Phase 13; returns (band launches, launches per step)."""
     import torch
     golden = np.load(GOLDEN.format("yearly_1200"))
     builds = dense_build_log(st)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    grid, eq = cfg.yearly_build(st, precond="auto", fp32_phase=False)
+    twin = cfg.load_example("safeincave_torch",
+                            cfg.EXAMPLE_RUNS["yearly"][0])
+    grid, eq = twin["build"](full=True, device=dev)
+    # the example's settings (precond "auto": dense here), the sweep off
+    eq.set_solver(dataclasses.replace(eq.solver, fp32_phase=False))
     if grid.n_nodes != 7669 or grid.reorder_method != "band":
         raise AssertionError(f"yearly: mesh {grid.n_nodes} nodes, order "
                              f"{grid.reorder_method}")
@@ -1333,18 +1424,21 @@ def yearly_phase(st, cfg, tmp):
             ("op", "operation", cfg.YEARLY_SAVE_EVERY,
              dict(checkpoint_every=cfg.YEARLY_CHECKPOINT_EVERY,
                   checkpoint_path=ck))):
-        out = MemorySink(eq, save_every=every)
+        out = st.SaveFields(eq, save_every=every)
+        out.set_output_folder(os.path.join(tmp, "yearly", stage))
         for f in cfg.YEARLY_FIELDS[stage]:
             out.add_output_field(f, f)
         metrics = st.StepMetrics(os.path.join(tmp, f"yearly_{stage}.jsonl"))
         n0 = band.launches
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        with contextlib.redirect_stdout(io.StringIO()):
+        with contextlib.redirect_stdout(io.StringIO()), \
+                timed_saves(st) as saves:
             tc = cfg.run_yearly_stage(st, eq, grid, stage, [out],
                                       metrics=metrics, **extra)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t1
+        times = read_back(st, out)
         need_band(f"yearly {stage}", eq)
         rec = cfg.yearly_record(eq, metrics, stage)
         rows, ref_rows = rec["rows"], golden[f"{prefix}_rows"]
@@ -1363,9 +1457,9 @@ def yearly_phase(st, cfg, tmp):
                           golden[f"{prefix}_{f}"], 1e-6)
                 for f in (*cfg.YEARLY_FIELDS[stage], "sig_v")}
         want = [k * tc.dt for k in range(0, n + 1, every)]
-        if not np.allclose(saved_times(out, st), want, rtol=0, atol=1e-6):
-            raise AssertionError(f"yearly {stage}: saves at "
-                                 f"{saved_times(out, st)}, want {want}")
+        if not np.allclose(times, want, rtol=0, atol=1e-6):
+            raise AssertionError(f"yearly {stage}: saves at {times}, want "
+                                 f"{want}")
         walls = [r["wall_s"] for r in metrics.records]
         say("yearly", f"{stage}: {n} steps converged in {secs:.2f} s (dense "
                       f"preconditioner build included); "
@@ -1378,7 +1472,10 @@ def yearly_phase(st, cfg, tmp):
                       f"per step; vs golden "
                       + ", ".join(f"{f} {e:.2e}" for f, e in errs.items())
                       + f" (<=1e-6 max|ref|); {len(want)} saves at the "
-                      f"expected times")
+                      f"expected times, read back through postproc, the "
+                      f"last equal to the fields in memory bit for bit; "
+                      f"{1e3 * secs / n:.1f} ms/step in the stage; "
+                      + save_note(saves, out.output_folder))
         total_steps += n
         notes.append(1e3 * float(np.mean(walls[every:])))
     with np.load(ck) as z:
@@ -1539,55 +1636,6 @@ def allclose(tag, got, ref, rtol, atol):
     return float(np.abs(got - ref).max() / np.abs(ref).max())
 
 
-# sitecustomize of the app run's child on a machine without h5py: the JSON
-# driver's SaveFields becomes a sink that records the times it saved
-SINK_SITE = '''
-import json
-import os
-
-_path = os.environ.get("SAFEINCAVE_SAVES_JSON")
-if _path:
-    import safeincave_torch.config as _config
-
-    class _TimesSink:
-        def __init__(self, eq, save_every=1):
-            self.save_every, self.fields, self._calls = save_every, [], 0
-            self.times, self.folder = [], ""
-
-        def set_output_folder(self, folder):
-            self.folder = folder
-
-        def add_output_field(self, name, label):
-            self.fields.append((name, label))
-
-        def initialize(self):
-            pass
-
-        def calls_until_next_keep(self):
-            j = (1 - self._calls) % self.save_every
-            return j if j else self.save_every
-
-        def skip_calls(self, k):
-            self._calls += k
-
-        def save_fields(self, t):
-            if self._calls % self.save_every == 0:
-                self.times.append(float(t))
-            self._calls += 1
-
-        def save_mesh(self):
-            rec = {}
-            if os.path.isfile(_path):
-                with open(_path) as f:
-                    rec = json.load(f)
-            rec[os.path.basename(self.folder)] = self.times
-            with open(_path, "w") as f:
-                json.dump(rec, f)
-
-    _config.SaveFields = _TimesSink
-'''
-
-
 def app_run(st, cfg, dev, tmp):
     """Phase 16's app run: ``InputFileBuilder`` writes and validates a
     2-step case over box_mesh(nx=3); ``SimulatorRunner`` runs it in a child
@@ -1618,42 +1666,21 @@ def app_run(st, cfg, dev, tmp):
     if errs:
         raise AssertionError(f"app: the case does not validate: {errs}")
     case = b.save(os.path.join(tmp, "app_case.json"))
-    saves = os.path.join(tmp, "app_saves.json")
-    old_env = {k: os.environ.get(k)
-               for k in ("PYTHONPATH", "SAFEINCAVE_SAVES_JSON")}
-    if not have_h5py():
-        site = os.path.join(tmp, "app_site")
-        os.makedirs(site, exist_ok=True)
-        with open(os.path.join(site, "sitecustomize.py"), "w") as f:
-            f.write(SINK_SITE)
-        os.environ["PYTHONPATH"] = os.pathsep.join(
-            p for p in (site, ROOT, old_env["PYTHONPATH"]) if p)
-        os.environ["SAFEINCAVE_SAVES_JSON"] = saves
     lines = []
     t0 = time.perf_counter()
-    try:
-        runner = SimulatorRunner(output_callback=lines.append,
-                                 device=dev.type)
-        runner.launch(case)
-        rc = runner.wait(timeout=600)
-    finally:
-        for k, v in old_env.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
+    runner = SimulatorRunner(output_callback=lines.append, device=dev.type)
+    runner.launch(case)
+    rc = runner.wait(timeout=600)
     secs = time.perf_counter() - t0
     text = "".join(lines)
     if rc != 0:
         raise AssertionError(f"app: the runner's child exited {rc}:\n"
                              f"{text[-3000:]}")
-    if have_h5py():
-        times, _, _, _ = st.PostProcessingTools.read_timeseries(
-            os.path.join(out_dir, "operation"), "u")
-        times = [float(t) for t in times]
-    else:
-        with open(saves) as f:
-            times = json.load(f)["operation"]
+    times, u, _, _ = st.PostProcessingTools.read_timeseries(
+        os.path.join(out_dir, "operation"), "u")
+    times = [float(t) for t in times]
+    if not np.isfinite(u).all():
+        raise AssertionError("app: non-finite u read back")
     rows = cfg.screen_rows([ln.rstrip("\n") for ln in lines])
     if len(rows) != 2:
         raise AssertionError(f"app: {len(rows)} step rows streamed:\n"
@@ -1664,6 +1691,225 @@ def app_run(st, cfg, dev, tmp):
     if dev.type not in device_line:
         raise AssertionError(f"app: the child ran on {device_line!r}")
     return secs, lines, times, device_line
+
+
+@contextlib.contextmanager
+def kernel_instances(st):
+    """While active, every block-DIA and band operator the port builds is
+    appended to ``made["dia"]`` / ``made["band"]``; each counts its own
+    launches from 0."""
+    from importlib import import_module
+    made = {"dia": [], "band": []}
+    classes = {"dia": import_module(f"{st.__name__}.fem.dia").BlockDIA,
+               "band": import_module(
+                   f"{st.__name__}.fem.bandkernel").BandMatvec}
+    real = {k: cls.__init__ for k, cls in classes.items()}
+
+    def recorder(key):
+        def init(self, *args, **kw):
+            real[key](self, *args, **kw)
+            made[key].append(self)
+        return init
+    for key, cls in classes.items():
+        cls.__init__ = recorder(key)
+    try:
+        yield made
+    finally:
+        for key, cls in classes.items():
+            cls.__init__ = real[key]
+
+
+# the examples whose equations must run on the block-DIA kernel (the
+# generated cavern of nobian_yearly's CI scale is in natural order too)
+DIA_EXAMPLES = ("triaxial", "cube_regions", "tm_cube", "interlayer",
+                "yearly")
+# files each example writes beside its fields, relative to its output root
+EXAMPLE_FILES = {"interlayer": ("nobian_interlayer/ksp_log.jsonl",),
+                 "yearly": ("nobian_yearly/metrics.jsonl",
+                            "nobian_yearly/checkpoint.npz")}
+
+
+def example_outputs(cfg, out_root, name):
+    """Check the files an example writes: per field an .xdmf and an .h5,
+    a log.txt in each folder that holds fields, and the example's own
+    files; returns the number of steps its transcripts list."""
+    logs = {}
+    for base, dirs, files in os.walk(out_root):
+        for f in files:
+            if f.endswith(".xdmf") and f[:-5] + ".h5" not in files:
+                raise AssertionError(f"examples {name}: {base}/{f} has no "
+                                     f".h5 beside it")
+        if any(f.endswith(".xdmf") for d in dirs
+               for f in os.listdir(os.path.join(base, d))):
+            if "log.txt" not in files:
+                raise AssertionError(f"examples {name}: no log.txt in "
+                                     f"{base}")
+            with open(os.path.join(base, "log.txt")) as fh:
+                logs[base] = fh.read()
+    for rel in EXAMPLE_FILES.get(name, ()):
+        if not os.path.isfile(os.path.join(out_root, rel)):
+            raise AssertionError(f"examples {name}: {rel} was not written")
+    # a stage's transcript is written to each of its output folders
+    return sum(len(cfg.screen_rows(text.splitlines()))
+               for text in set(logs.values()))
+
+
+def hold_example(name, rec, ref):
+    """The final saved fields within 1e-6 max|ref| of the JAX golden, the
+    save times equal, the fixed-point counts of each transcript within
+    +-1; returns the worst field error."""
+    if set(rec) != set(ref):
+        raise AssertionError(f"examples {name}: outputs "
+                             f"{sorted(set(rec) ^ set(ref))} differ from "
+                             f"the golden's")
+    worst = 0.0
+    for k, want in ref.items():
+        got = rec[k]
+        if k.endswith(".times"):
+            if not np.array_equal(got, want):
+                raise AssertionError(f"examples {name}: {k} {got} vs "
+                                     f"{want}")
+        elif k.endswith(".log") or k == "log":
+            if got.shape != want.shape or np.abs(got - want).max(
+                    initial=0) > 1:
+                raise AssertionError(f"examples {name}: {k} fixed-point "
+                                     f"counts {got.tolist()} vs golden "
+                                     f"{want.tolist()}")
+        else:
+            worst = max(worst, within(f"examples {name} {k}", got, want,
+                                      1e-6))
+    return worst
+
+
+@contextlib.contextmanager
+def sweep_off(st):
+    """While active, every momentum equation's solver settings get
+    ``fp32_phase=False``, whatever the script asked for."""
+    base = st.LinearMomentumBase
+    real = base.set_solver
+
+    def set_solver(self, solver):
+        real(self, dataclasses.replace(solver, fp32_phase=False))
+    base.set_solver = set_solver
+    try:
+        yield
+    finally:
+        base.set_solver = real
+
+
+def examples_phase(st, cfg, dev, tmp, card):
+    """Phase 17; returns the DIA kernel's (launches, launches per step)
+    over the examples that run on it."""
+    with sweep_off(st):
+        return run_examples(st, cfg, dev, tmp, card)
+
+
+def run_examples(st, cfg, dev, tmp, card):
+    import torch
+    dia_launches = dia_steps = 0
+    for name, (script, _, kwargs) in cfg.EXAMPLE_RUNS.items():
+        golden = np.load(GOLDEN.format(f"examples_{name}"))
+        ref = {k[len("card."):]: golden[k] for k in golden.files
+               if k.startswith("card.")}
+        run = os.path.join(tmp, "examples", name)
+        with kernel_instances(st) as made, timed_saves(st) as saves, \
+                contextlib.redirect_stdout(io.StringIO()):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = cfg.run_example("safeincave_torch", script, run,
+                                     kwargs, device=dev)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        out_root = os.path.join(run, "output")
+        n_steps = example_outputs(cfg, out_root, name)
+        rec = cfg.example_record(out_root,
+                                 st.PostProcessingTools.read_timeseries)
+        err = hold_example(name, rec, ref)
+        launches = {k: sum(op.launches for op in ops)
+                    for k, ops in made.items()}
+        if name in DIA_EXAMPLES:
+            if not made["dia"] or launches["dia"] <= 0:
+                raise AssertionError(f"examples {name}: the DIA kernel "
+                                     f"never launched")
+            dia_launches += launches["dia"]
+            dia_steps += n_steps
+        kernel = ", ".join(
+            f"{k} kernel {n} launches, {n / n_steps:.1f} per step"
+            for k, n in launches.items() if made[k]) or \
+            "no hand kernel on this path"
+        extra = ""
+        if name == "yearly":
+            if not (result["max_error"] <= 1e-8 and result["steps"] > 0):
+                raise AssertionError(f"examples yearly: {result}")
+            ck = os.path.join(out_root, "nobian_yearly", "checkpoint.npz")
+            with np.load(ck) as z:
+                ck_step = int(z["tc_step"])
+            with contextlib.redirect_stdout(io.StringIO()):
+                resumed = cfg.run_example(
+                    "safeincave_torch", script, run + "_resume",
+                    {"argv": kwargs["argv"] + ["--resume", ck]},
+                    device=dev)
+            if not (resumed["steps"] == result["steps"] - ck_step
+                    and resumed["max_error"] <= 1e-8):
+                raise AssertionError(f"examples yearly: resumed from step "
+                                     f"{ck_step}: {resumed}")
+            extra = (f"; --resume from the step-{ck_step} checkpoint ran "
+                     f"the last {resumed['steps']} steps, max error "
+                     f"{resumed['max_error']:.2e}")
+        say("examples", f"{script}: {n_steps} steps converged in "
+                        f"{secs:.2f} s, "
+                        f"{1e3 * secs / n_steps:.1f} ms/step; {kernel}; "
+                        f"fields read back through postproc vs JAX golden "
+                        f"{err:.2e} (<=1e-6 max|ref|), save times equal, "
+                        f"fixed-point counts within 1; "
+                        + save_note(saves, out_root) + extra + f"; {card}")
+    for name, script in cfg.CALIBRATIONS.items():
+        golden = np.load(GOLDEN.format(f"examples_{name}"))
+        run = os.path.join(tmp, "examples", name)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            if name == "creep":
+                fits = {"fit": cfg.run_example("safeincave_torch", script,
+                                               run, {}, device=dev)}
+                steps = 300
+            elif name == "labdata":
+                out = cfg.run_example(
+                    "safeincave_torch", script, run,
+                    {"argv": ["--no-plot", "--out", run]}, device=dev)
+                fits = {"fit": out["fitted"]}
+                steps = 400
+                if not os.path.isfile(os.path.join(run,
+                                                   "fitted_params.json")):
+                    raise AssertionError("examples labdata: no "
+                                         "fitted_params.json")
+            elif name == "triaxial_fit":
+                steps = cfg.TRIAXIAL_FIT_STEPS
+                fits = {"fit": cfg.run_example(
+                    "safeincave_torch", script, run,
+                    {"argv": [], "steps": steps}, device=dev)}
+            else:
+                steps = cfg.MULTIMODEL_STEPS
+                sic, md = cfg.run_example("safeincave_torch", script, run,
+                                          {"steps": steps}, device=dev)
+                fits = {"sic.fit": sic, "md.fit": md}
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        worst = 0.0
+        for prefix, fitted in fits.items():
+            for k, v in fitted.items():
+                want = float(golden[f"{prefix}.{k}"])
+                e = abs(float(v) - want) / abs(want)
+                if not e <= 1e-6:
+                    raise AssertionError(f"examples {name}: {prefix}.{k} "
+                                         f"{float(v)!r} vs golden {want!r}")
+                worst = max(worst, e)
+        say("examples", f"{script}: {len(fits)} fit(s) of {steps} Adam "
+                        f"steps in {secs:.2f} s ({secs / len(fits):.2f} s "
+                        f"per fit, the observed record included); fitted "
+                        f"parameters vs JAX golden {worst:.2e} relative "
+                        f"(<=1e-6); {card}")
+    return dia_launches, dia_launches / dia_steps
 
 
 def halo_phase(st, cfg, dev, card):
@@ -1904,12 +2150,11 @@ def halo_phase(st, cfg, dev, card):
                     f"step; {card}")
     say("halo", f"shard_tm vs unsharded: T {d_T:.2e} (rtol 1e-10, atol "
                 f"1e-8), u {d_tu:.2e} (rtol 1e-8) of max|ref|")
-    sink = "SaveFields (h5py)" if have_h5py() else "in memory (no h5py)"
     say("halo", f"app: InputFileBuilder case (box_mesh nx=3, 2 steps) "
                 f"validated; SimulatorRunner's child sim_cli exit 0 in "
                 f"{app_s:.1f} s, {len(lines)} lines streamed, 2 step rows, "
-                f"'{device_line}', operation saves at {times} s; outputs "
-                f"{sink}")
+                f"'{device_line}', operation u saved at {times} s (the "
+                f"child's SaveFields files, read back through postproc)")
     return {"halo": (1e3 * secs_h5 / 5, *mv_ms["halo"],
                      *launches["halo"]),
             "unsharded": (1e3 * secs_u5 / 5, *mv_ms["unsharded"],
@@ -2242,7 +2487,8 @@ def main():
                     "stage records to RESULT; 'off' runs without the f32 "
                     "sweep")
     ap.add_argument("--phase", choices=("tm", "tm_box", "lag", "yearly",
-                                        "order", "point", "halo", "cards"),
+                                        "order", "point", "examples", "halo",
+                                        "cards"),
                     help="after the build, run this phase alone (no kernel "
                     "JSON and no ok line); 'cards' needs 4 cards")
     args = ap.parse_args()
@@ -2302,9 +2548,11 @@ def main():
             print({"tm": lambda: tm_phase(st, cfg, tmp),
                    "tm_box": lambda: tm_box_phase(st, cfg),
                    "lag": lambda: lag_phase(st, cfg),
-                   "yearly": lambda: yearly_phase(st, cfg, tmp),
+                   "yearly": lambda: yearly_phase(st, cfg, dev, tmp),
                    "order": lambda: order_phase(st, cfg),
                    "point": lambda: point_phase(st, cfg, dev),
+                   "examples": lambda: examples_phase(st, cfg, dev, tmp,
+                                                      card),
                    "halo": lambda: halo_phase(st, cfg, dev, card),
                    "cards": lambda: cards_phase(st, cfg),
                    }[args.phase](),
@@ -2423,7 +2671,7 @@ def main():
         # 10. the thermo-mechanical driver on cavern600 --------------------- #
         tm_launches, tm_per_step = tm_phase(st, cfg, tmp)
         # 13. the yearly production run on the 38k-tet mesh ----------------- #
-        yearly = yearly_phase(st, cfg, tmp)
+        yearly = yearly_phase(st, cfg, dev, tmp)
 
     # 11. the coupled chunk on box17: block-DIA and the f32 sweep ---------- #
     tm_box_launches, tm_box_per_step = tm_box_phase(st, cfg)
@@ -2433,6 +2681,9 @@ def main():
     # 14. node orders of the cavern mesh; 15. the point simulators --------- #
     order_phase(st, cfg)
     point_phase(st, cfg, dev)
+    # 17. the examples tree through the twins' main ---------------------- #
+    with tempfile.TemporaryDirectory() as tmp:
+        examples = examples_phase(st, cfg, dev, tmp, card)
     # 16. the parallel layer and the app runner; last, as it profiles ----- #
     halo_phase(st, cfg, dev, card)
 
@@ -2443,7 +2694,8 @@ def main():
                             "lag": lag, "yearly": yearly},
              DIA["name"]: {"box": (launches_box, dia_per_step),
                            "json": (json_launches, json_per_step),
-                           "tm_box": (tm_box_launches, tm_box_per_step)}}
+                           "tm_box": (tm_box_launches, tm_box_per_step),
+                           "examples": examples}}
     for row in kernel_rows:
         by_path = paths[row["name"]]
         # the row of the 1200 mesh reports the path that runs at its shape

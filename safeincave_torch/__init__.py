@@ -1,6 +1,6 @@
 """safeincave_torch - PyTorch/CUDA port of safeincave_tpu.
 
-The port goes slice by slice; six are in:
+The port goes slice by slice; seven are in:
 
 1. the cavern mechanics main path: band-reordered tet meshes, Spring +
    Viscoelastic + DislocationCreep + ViscoplasticDesai, Dirichlet supports
@@ -35,12 +35,15 @@ The port goes slice by slice; six are in:
    ``parallel.shard_equation`` (owned-node halo exchange or a summed
    assembly over D parts, all on one device) and ``parallel.shard_tm``, and
    ``app`` (the case builder, the terminal editor, the subprocess runner,
-   the script runner and the Tk GUI).
+   the script runner and the Tk GUI);
+7. the outputs without h5py: ``output/hdf5.py``, the port's own writer and
+   reader of the HDF5 subset that ``SaveFields`` needs, and the examples
+   tree as ``safeincave_torch/examples/`` (the repository's examples on
+   the port, run from a checkout).
 
 Module names follow ``safeincave_tpu`` so each counterpart is easy to find.
 Entry points run on the card unless given ``device="cpu"``.  The package
-imports torch, numpy and scipy (h5py where HDF5 files are opened), never
-jax.
+imports torch, numpy and scipy, never jax or h5py.
 """
 from ._device import default_device
 from . import utils as Utils  # noqa: N812  (reference-compatible alias)

@@ -1,15 +1,16 @@
 """Console/log observability (port of ``safeincave_tpu/output/screen.py``).
 
-A singleton ``ScreenPrinter``: banner (mesh, device, solver, mechanisms,
-outputs), one row per time step in the JAX package's format, so that the two
-packages' logs diff cleanly, and the transcript written to ``log.txt`` in
-each output folder.  In a ``torch.distributed`` run only rank 0 prints.
+A singleton ``ScreenPrinter``: banner (mesh, device, the partition table
+of an RCB-partitioned grid, solver, mechanisms, outputs), one row per time
+step in the JAX package's format, so that the two packages' logs diff
+cleanly, and the transcript written to ``log.txt`` in each output folder.  In a ``torch.distributed`` run only rank 0 prints.
 """
 from __future__ import annotations
 
 import os
 import time
 
+import numpy as np
 import torch
 
 from ..utils import is_main_process
@@ -68,6 +69,7 @@ class ScreenPrinter:
             device = getattr(self.mat, "device", None)
             if device is not None:
                 self._log(f"  device: {_device_label(device)}")
+            self._emit_partition_table()
         if self.solver is not None:
             method = getattr(self.solver, "method", str(self.solver))
             precond = getattr(self.solver, "precond", "")
@@ -83,6 +85,21 @@ class ScreenPrinter:
         self._log("  " + " | ".join(f"{h:>18s}" for h in self.header))
         self._log("-" * 78)
 
+    def _emit_partition_table(self):
+        """Per-partition element and node counts of a grid loaded with
+        ``nparts`` (its RCB ``elem_parts``), in the JAX package's format."""
+        parts = getattr(self.grid, "elem_parts", None)
+        if parts is None:
+            return
+        parts = np.asarray(parts)
+        conn = np.asarray(self.grid.conn)
+        self._log("  partitions:   #     elements     nodes(touched)")
+        for d in range(int(parts.max()) + 1):
+            sel = parts == d
+            n_nodes_d = len(np.unique(conn[sel]))
+            self._log(f"               {d + 1:2d}   {int(sel.sum()):9d}"
+                      f"     {n_nodes_d:9d}")
+
     def print_row(self, row):
         cells = []
         for v in row:
@@ -91,6 +108,9 @@ class ScreenPrinter:
             else:
                 cells.append(f"{str(v):>18s}")
         self._log("  " + " | ".join(cells))
+
+    def start_timer(self):
+        self.t_start = time.time()
 
     def close(self):
         elapsed = time.time() - self.t_start

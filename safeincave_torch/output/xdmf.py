@@ -7,9 +7,11 @@ copied to ``{out}/mesh/``.  Fields are looked up as attributes of the
 equation at save time and fetched to the host with
 ``.detach().cpu().numpy()``; the output fields (``u``, ``sig``,
 ``eps_tot``, ``p_elems``, ``q_elems``, ...) cover the whole mesh at its
-true element count on every rank of a sharded equation.  ``h5py`` is
-imported when the files are opened (:meth:`SaveFields.initialize`), so the
-solver never needs it.
+true element count on every rank of a sharded equation.  The ``.h5``
+files are written by the port's own numpy writer
+(:class:`~safeincave_torch.output.hdf5.H5Writer`, no h5py needed): the
+HDF5 subset h5py writes by default, which h5py reads to the same bits.
+Each save is flushed, so the file on disk holds every save so far.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import shutil
 import numpy as np
 
 from ..utils import is_main_process, to_numpy
+from .hdf5 import H5Writer
 
 
 def _field_layout(arr, n_nodes, n_elems):
@@ -73,12 +76,11 @@ class SaveFields:
     def initialize(self):
         if not self._writes:
             return
-        import h5py
         for field_name, _ in self.fields:
             fdir = os.path.join(self.output_folder, field_name)
             os.makedirs(fdir, exist_ok=True)
             h5path = os.path.join(fdir, f"{field_name}.h5")
-            h5 = h5py.File(h5path, "w")
+            h5 = H5Writer(h5path)
             h5.create_dataset("Mesh/geometry", data=np.asarray(self.grid.points))
             h5.create_dataset("Mesh/topology",
                               data=np.asarray(self.grid.conn, dtype=np.int64))

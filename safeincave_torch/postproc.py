@@ -9,7 +9,9 @@ Two entry levels:
   reads dolfinx's XDMFFile layout, and path-based wrappers on an ``.xdmf``
   file.
 
-``h5py`` is imported by the functions that open HDF5 files.
+HDF5 files are read by the port's own numpy reader
+(:class:`~safeincave_torch.output.hdf5.H5Reader`), which reads the files
+h5py writes by default; no h5py is needed.
 """
 from __future__ import annotations
 
@@ -18,18 +20,19 @@ import xml.etree.ElementTree as ET
 
 import numpy as np
 
+from .output.hdf5 import H5Reader
+
 
 # ---------------------------------------------------------------------------
 # Generic XDMF time-series reader (SaveFields and dolfinx layouts)
 # ---------------------------------------------------------------------------
 def _load_dataitem(text: str, base_dir: str, h5_cache: dict) -> np.ndarray:
     """Resolve 'file.h5:/group/path' HeavyData references."""
-    import h5py
     fname, path = text.strip().split(":", 1)
     fpath = os.path.join(base_dir, fname)
     if fpath not in h5_cache:
-        h5_cache[fpath] = h5py.File(fpath, "r")
-    return h5_cache[fpath][path][()]
+        h5_cache[fpath] = H5Reader(fpath)
+    return h5_cache[fpath].read(path)
 
 
 def read_xdmf(xdmf_path: str):
@@ -140,14 +143,13 @@ def read_timeseries(output_folder: str, field_name: str):
     Returns (times, values, points, topology) where values has shape
     (n_steps, ...) matching the saved field layout.
     """
-    import h5py
     h5path = os.path.join(output_folder, field_name, f"{field_name}.h5")
-    with h5py.File(h5path, "r") as h5:
-        points = h5["Mesh/geometry"][()]
-        topology = h5["Mesh/topology"][()]
-        grp = h5[f"Function/{field_name}"]
-        steps = sorted(grp.keys(), key=int)
-        values = np.stack([grp[s][()] for s in steps])
+    with H5Reader(h5path) as h5:
+        points = h5.read("Mesh/geometry")
+        topology = h5.read("Mesh/topology")
+        grp = f"Function/{field_name}"
+        steps = sorted(h5.keys(grp), key=int)
+        values = np.stack([h5.read(f"{grp}/{s}") for s in steps])
     times = _read_times(output_folder, field_name)
     if times is None or len(times) != values.shape[0]:
         times = np.arange(values.shape[0], dtype=float)

@@ -60,6 +60,20 @@ tol 1e-8.
   ``TriaxialSimulator.run_compression`` of calibrate_triaxial.py's twin at
   its true parameters (``S_diff``, ``sig_zz``, ``eps_vol``, ``eps_ne``).
 
+- ``tests/golden/torch_port_examples_<name>.npz``: each example of
+  ``torch_port_configs.EXAMPLE_RUNS`` run through the JAX script's
+  ``main`` on the CPU, at the arguments chip_smoke.py's phase 17 gives its
+  twin on the card (``card.`` keys) and, where they differ, at the CPU
+  tests' shortened arguments (``cpu.`` keys): per saved field the last
+  save and the save times, per transcript the iteration column
+  (``torch_port_configs.example_record``).  thermal/2_cavern runs on
+  cavern_proxy_600 with its faces renamed as the reference mesh names
+  them (``reference_named_proxy``).  The calibrations (``creep``,
+  ``labdata``, ``triaxial_fit``, ``multimodel``) hold the JAX package's
+  fitted parameters (``sc.calibrate`` on the JAX script's forward model)
+  on the twin's observed record, which is stored beside them, at the
+  twin's Adam steps on the card.
+
 The two mechanics simulator goldens hold, per stage (``eq_`` and ``op_``
 prefixes), the step table (fixed-point iterations, error, converged) and
 the final fields the stage saves (u and p_elems; q_elems too in operation).
@@ -271,6 +285,71 @@ def point(tmp):
                    for k in ("S_diff", "sig_zz", "eps_vol", "eps_ne")})
 
 
+def _example(name):
+    import safeincave_tpu.postproc as pp
+
+    def make(tmp):
+        script, cpu_kw, card_kw = cfg.EXAMPLE_RUNS[name]
+        data = {}
+        for sched, kw in [("card", card_kw)] + (
+                [("cpu", cpu_kw)] if cpu_kw != card_kw else []):
+            run = os.path.join(tmp, sched)
+            if name == "thermal_cavern":
+                kw = {**kw, "grid_dir": cfg.reference_named_proxy(
+                    os.path.join(tmp, "grid"))}
+            cfg.run_example("safeincave_tpu", script, run, kw)
+            rec = cfg.example_record(os.path.join(run, "output"),
+                                     pp.read_timeseries)
+            data.update({f"{sched}.{k}": v for k, v in rec.items()})
+        return data
+    return make
+
+
+def _fit(model, params0, observed, **kw):
+    fitted, _ = sc.calibrate(model, params0=params0, observed=observed,
+                             loss_scale=float(np.abs(observed).max()), **kw)
+    return {f"fit.{k}": np.asarray(v) for k, v in fitted.items()}
+
+
+def _calibration(name):
+    def make(tmp):
+        script = cfg.CALIBRATIONS[name]
+        jx = cfg.load_example("safeincave_tpu", script)
+        twin = cfg.load_example("safeincave_torch", script)
+        if name == "creep":
+            obs = twin["observed_record"]("cpu")
+            out = _fit(jx["axial_creep_strain"], {"A": 5e-20, "n": 2.5},
+                       obs, lr=0.05, steps=300)
+        elif name == "labdata":
+            rec = jx["load_ifg_creep_csv"](os.path.join(
+                cfg.EXAMPLE_TREES["safeincave_tpu"], "mechanics",
+                "MaterialCalibration", "data", "ZW_TCC4.csv"))
+            obs = rec["eps_axial"] - rec["eps_axial"][0]
+            out = _fit(jx["make_forward"](rec),
+                       {"A": 1e-36, "n": 4.0, "eta1": 1e14, "E1": 5e9},
+                       obs, lr=0.08, steps=400)
+        elif name == "triaxial_fit":
+            obs = twin["observed_curves"]("cpu")
+            out = _fit(lambda p: jx["run_twin"](p["cohesion"],
+                                                p["friction"]),
+                       {"cohesion": 1.5, "friction": 22.0 * jx["DEG"]},
+                       obs, lr=0.08, steps=cfg.TRIAXIAL_FIT_STEPS)
+        else:
+            t_s, s1, s3, _ = jx["staged_schedule"]()
+            obs_sic, obs_md = twin["observed_records"](t_s, s1, s3, "cpu")
+            out = {f"sic.{k}": v for k, v in _fit(
+                lambda p: jx["sic_axial_strain"](p, t_s, s1, s3),
+                {"A": 5e-20, "n": 2.5, "eta": 3e14, "E1": 5e9}, obs_sic,
+                lr=0.05, steps=cfg.MULTIMODEL_STEPS).items()}
+            out.update({f"md.{k}": v for k, v in _fit(
+                lambda p: jx["md_axial_strain"](p, t_s, s1, s3),
+                {"A": 5e-20, "n": 2.5, "K0": 3e6, "delta": 0.3}, obs_md,
+                lr=0.05, steps=cfg.MULTIMODEL_STEPS).items()})
+            obs = np.stack([obs_sic, obs_md])
+        return {**out, "observed": np.asarray(obs)}
+    return make
+
+
 CASES = {"cavern600": lambda tmp: write_steps(_cavern600),
          "box17": lambda tmp: write_steps(_box17),
          "sim_cavern600": sim_cavern600, "json_box17": json_box17,
@@ -281,7 +360,9 @@ CASES = {"cavern600": lambda tmp: write_steps(_cavern600),
          "adaptive_cavern600": lambda tmp: flagged_cavern600(
              {"adaptive_rtol": True}),
          "yearly_1200": yearly_1200, "point": point,
-         "halo_cavern600": lambda tmp: write_steps(_halo_cavern600)}
+         "halo_cavern600": lambda tmp: write_steps(_halo_cavern600),
+         **{f"examples_{n}": _example(n) for n in cfg.EXAMPLE_RUNS},
+         **{f"examples_{n}": _calibration(n) for n in cfg.CALIBRATIONS}}
 
 
 def write(name):

@@ -128,7 +128,7 @@ def test_unported_reorderings_raise():
 
 def test_import_without_jax():
     """The port and all its modules import with jax made unimportable, and
-    without importing h5py (only opening HDF5 files needs it)."""
+    without importing h5py, which the port never needs."""
     code = ("import sys; sys.modules['jax'] = None; "
             "import safeincave_torch, safeincave_torch.interop, "
             "safeincave_torch.fem.bandkernel, safeincave_torch._build, "

@@ -708,3 +708,118 @@ def run_sharding_steps(eq, n_steps=2, dt=HOUR):
         eq.update_eps_ne_rate_old()
         eq.update_eps_ne_old(eq.sig_v, eq._last_sv_k, dt)
     return as_np(eq.u), as_np(eq.sig_v), np.asarray(rows, dtype=float)
+
+
+# -- the examples tree (examples/ and its twins in safeincave_torch/examples) #
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+EXAMPLE_TREES = {"safeincave_tpu": os.path.join(ROOT, "examples"),
+                 "safeincave_torch": os.path.join(ROOT, "safeincave_torch",
+                                                  "examples")}
+YEARLY_OUT = os.path.join("output", "nobian_yearly")
+# name: (script, main's arguments in the CPU tests, on the card).  The card
+# runs each script's defaults but nobian_yearly: its CI scale (the
+# documented "--dt-days 2" on the generated cavern, mesh_n 8) cut in depth
+# from 365 to 120 days, 60 steps and a checkpoint at step 32 (--full is
+# chip_smoke.py's phase 13).
+EXAMPLE_RUNS = {
+    "thermal_cube": ("thermal/1_cube/main.py", {}, {}),
+    "triaxial": ("mechanics/1_triaxial/main.py",
+                 {"final_time": 2.0, "dt": 0.5}, {}),
+    "cube_regions": ("mechanics/2_cube_regions/main.py", {}, {}),
+    "tm_cube": ("thermomechanics/1_cube/main.py", {}, {}),
+    "cavern": ("mechanics/4_cavern/main.py",
+               {"eq_hours": 2.0, "eq_dt": 1.0, "op_hours": 2.0,
+                "op_dt": 1.0}, {}),
+    "thermal_cavern": ("thermal/2_cavern/main.py",
+                       {"n_time_steps": 3, "final_time": 0.1,
+                        "time_unit": "day"}, {}),
+    "interlayer": ("mechanics/nobian_interlayer/main.py",
+                   {"operation_days": 0.25, "dt_hours": 2.0}, {}),
+    "yearly": ("mechanics/nobian_yearly/main.py",
+               {"argv": ["--days", "20", "--dt-hours", "12", "--mesh-n",
+                         "5", "--mode", "stretch", "--out", YEARLY_OUT]},
+               {"argv": ["--days", "120", "--dt-days", "2",
+                         "--out", YEARLY_OUT]}),
+}
+# the calibration scripts: (script, Adam steps on the card)
+CALIBRATIONS = {"creep": "mechanics/MaterialCalibration/calibrate_creep.py",
+                "labdata": "mechanics/MaterialCalibration/"
+                           "calibrate_labdata.py",
+                "triaxial_fit": "mechanics/MaterialCalibration/"
+                                "calibrate_triaxial.py",
+                "multimodel": "mechanics/MaterialCalibration/"
+                              "calibrate_multimodel.py"}
+TRIAXIAL_FIT_STEPS = 1
+MULTIMODEL_STEPS = 2
+
+
+def load_example(pkg_name, script):
+    """The globals of an example script (``examples/`` for the JAX package,
+    ``safeincave_torch/examples/`` for the port), loaded as a module that
+    is not ``__main__``."""
+    import runpy
+    import sys
+    path = os.path.join(EXAMPLE_TREES[pkg_name], script)
+    sys.path.insert(0, os.path.dirname(path))
+    try:
+        return runpy.run_path(path, run_name="example")
+    finally:
+        sys.path.pop(0)
+
+
+def run_example(pkg_name, script, cwd, kwargs, device=None):
+    """Run an example's ``main(**kwargs)`` with ``cwd`` as the working
+    directory (its outputs land under ``cwd/output``); the port's twin
+    gets ``device``.  Returns main's result."""
+    mod = load_example(pkg_name, script)
+    if pkg_name == "safeincave_torch":
+        kwargs = {**kwargs, "device": device}
+    old = os.getcwd()
+    os.makedirs(cwd, exist_ok=True)
+    os.chdir(cwd)
+    try:
+        return mod["main"](**kwargs)
+    finally:
+        os.chdir(old)
+
+
+def example_record(out_root, read_timeseries):
+    """What the example goldens keep of a run's outputs under
+    ``out_root``: per saved field (``<folder>.<field>`` relative to
+    ``out_root``, "/" as ".") the last save and the save times, and per
+    transcript (``<folder>.log``) the iteration column of its step rows."""
+    rec = {}
+    for base, _, files in sorted(os.walk(out_root)):
+        for f in sorted(files):
+            rel = os.path.relpath(base, out_root).replace(os.sep, ".")
+            if f.endswith(".xdmf"):
+                folder = os.path.dirname(base)
+                name = f[:-len(".xdmf")]
+                t, v, _, _ = read_timeseries(folder, name)
+                key = rel.rpartition(".")[0] if "." in rel else ""
+                key = f"{key}.{name}" if key else name
+                rec[key] = np.asarray(v[-1])
+                rec[f"{key}.times"] = np.asarray(t, dtype=float)
+            elif f == "log.txt":
+                with open(os.path.join(base, f)) as fh:
+                    rows = screen_rows(fh.read().splitlines())
+                rec[f"{rel}.log" if rel != "." else "log"] = rows[:, 0]
+    return rec
+
+
+def reference_named_proxy(dst):
+    """grids/cavern_proxy_600 written to ``dst/geom.msh`` with its faces
+    named as the reference's cavern_regular_600_3D names them ("Top",
+    "West", ...): the mesh examples/thermal/2_cavern/main.py expects.  The
+    port's twin runs on the proxy itself and finds the faces in either
+    case."""
+    src = os.path.join(ROOT, "grids", "cavern_proxy_600", "geom.msh")
+    with open(src) as f:
+        text = f.read()
+    for face in ("WEST", "EAST", "SOUTH", "NORTH", "BOTTOM", "TOP"):
+        text = text.replace(f'"{face}"', f'"{face.title()}"')
+    os.makedirs(dst, exist_ok=True)
+    with open(os.path.join(dst, "geom.msh"), "w") as f:
+        f.write(text)
+    return dst
+
