@@ -14,10 +14,12 @@ Phases, one line each; any failure raises and the exit code is non-zero:
 3. kernel  - each kernel against its plain PyTorch twin on a random
              energy-symmetric tangent, at every shape it is measured at:
              the band matvec at cavern_proxy_600 (the main path), at the
-             band-ordered GridBox nx=44 (bench.py's scale size) and at the
+             band-ordered GridBox nx=44 (bench.py's scale size), at the
              band-ordered 38k-tet cavern_interlayer_1200 mesh (the yearly
-             path), 2e-5 max|ref|; the f32 DIA matvec at the box path's nx=17
-             and at nx=44, 1e-5 max|ref|, and the f64 DIA matvec at nx=17, 1e-12.
+             path) and at the band-ordered cavern_proxy_1200 and
+             cavern_interlayer_proxy (phase 18's meshes), 2e-5 max|ref|;
+             the f32 DIA matvec at the box path's nx=17 and at nx=44, 1e-5
+             max|ref|, and the f64 DIA matvec at nx=17, 1e-12.
              Bitwise repeatability and energy symmetry.  Per kernel and
              shape: ``ms`` (the wrapper call, CUDA events over 200 calls),
              ``device_ms`` (the kernels' own time per call, torch.profiler,
@@ -195,15 +197,19 @@ Phases, one line each; any failure raises and the exit code is non-zero:
              the card's name and power limit.
 
 17. examples - the examples tree on the card: each twin of
-             safeincave_torch/examples but thermomechanics/2_cavern (its
-             mesh is not in the repository) through its ``main`` with
+             safeincave_torch/examples through its ``main`` with
              ``device`` the card, in a temporary working directory, at its
              own mesh and material and the arguments of
              ``torch_port_configs.EXAMPLE_RUNS``: each script's defaults
              but nobian_yearly, at its documented CI scale ("--dt-days 2",
              the generated cavern; phase 13 runs ``--full``) cut in depth
              from 365 to 120 days, then ``--resume`` from its step-32
-             checkpoint.  The f32 sweep is off, as in phases 8, 12 and 13:
+             checkpoint, and thermomechanics/2_cavern, on a stand-in for
+             the reference's overburden mesh
+             (``torch_port_configs.overburden_standin``, written into the
+             temporary directory) with its operation cut from 240 to 40
+             days; its Morton order leaves it on the cumsum operator, no
+             hand kernel.  The f32 sweep is off, as in phases 8, 12 and 13:
              on CUDA the scripts' "auto" turns it on, and on 1_triaxial it
              changes the fixed-point counts and makes steps retry (PERF.md
              section 7).  Per example: every step
@@ -224,7 +230,44 @@ Phases, one line each; any failure raises and the exit code is non-zero:
              would take hours); the fitted parameters within 1e-6 relative
              of the golden.  Each line: ms/step (or s per fit), the kernel's
              launches per step, ms per save and .h5 bytes, the card's name
-             and power limit.  Runs before phase 16.
+             and power limit.  Last, 1_triaxial once more at its defaults
+             with the f32 sweep forced on, against
+             tests/golden/torch_port_examples_triaxial_sweep.npz (the JAX
+             script with the sweep forced on): every step converged, each
+             final field within ``TRIAX_SWEEP_SPREAD`` times the JAX
+             package's own spread of it under a round-off change (its
+             jacobi run beside the 2level one: with the sweep on the
+             script's fields move by 1.6e-3 to 6.9% of max|ref| in the
+             JAX package itself); the dt halvings, the sweeps run and
+             accepted and the fixed-point counts beside the golden's are
+             reported.  Runs before phase 18.
+18. tm_cyclic - bench.py's three TM-cyclic configurations (BASELINE
+             configs 4-5; ``torch_port_configs.tm_cyclic``, a line-for-line
+             twin of bench.py's ``build_tm_cyclic``): regular1200 on
+             cavern_proxy_1200 (Kelvin-Voigt + dislocation creep),
+             interlayer600 on cavern_interlayer_proxy and interlayer1200 on
+             cavern_interlayer_1200 (dislocation creep in the salt,
+             Mohr-Coulomb interlayers), band order, built with the port's
+             CUDA "auto" choices: the band kernel and the dense
+             preconditioner must be selected.  Each path runs twice, in
+             turns: the elastic response, the first coupled step alone,
+             then 10 steps in chunks of 2 (``solve_tm_time_steps``, dt 1 h,
+             tol 1e-6, 20 iterations), as bench_tm_cyclic drives them.
+             With the f32 sweep off the run is held to
+             tests/golden/torch_port_tmcyc_<path>.npz (the JAX package on
+             the CPU, 2level, cumsum, 11 steps): elastic u at 1e-8
+             relative, convergence flags equal, fixed-point counts within
+             1, u, T and sig_v after step 1 and u, T, p and q after step 11
+             within ``TMCYC_SPREAD`` times the JAX package's own spread
+             between its 2level and dense preconditioners (stored in the
+             golden), at most 1e-5 max|ref|.  With "auto" (the sweep on)
+             every step must converge where the golden's did; its fields'
+             distance from the sweep-off run is reported.  Per path and
+             way: ms/step (median of the chunks after the first step), the
+             first step apart, fixed-point, Krylov and heat CG iterations
+             per step, band launches per step, sweeps run and accepted,
+             peak device memory, and the ratio to baseline_measured.json's
+             1-core CPU JAX row.  Runs after phase 17, before phase 16.
 
 Phase 9 runs its case twice, with the f32 sweep as "auto" selects it and
 with ``fp32_phase=False``, and prints both lines.
@@ -270,7 +313,7 @@ runs phase 3 alone on the ``safeincave_torch`` package of another checkout
 the kernels in turns within one call; it prints the kernel JSON and the
 card, and no ``ok`` line.
 
-    python3 chip_smoke.py --phase tm|tm_box|lag|yearly|order|point|examples|halo
+    python3 chip_smoke.py --phase tm|tm_box|lag|yearly|order|point|examples|tm_cyclic|halo
 
 builds the kernels and runs that phase alone (no ``ok`` line).
 """
@@ -300,6 +343,13 @@ BAND = dict(name="band_matvec_f32", route="cuda",
 DIA = dict(name="dia_matvec_f32", route="cuda",
            source="safeincave_torch/csrc/dia_matvec.cu",
            replaces="safeincave_tpu/fem/dia.py:301")
+
+
+# the path whose launches a kernel row of each mesh reports (else the
+# kernel's first path)
+OWN_PATH = {"cavern_interlayer_1200": "yearly",
+            "cavern_proxy_1200": "tmcyc_regular1200",
+            "cavern_interlayer_proxy": "tmcyc_interlayer600"}
 
 
 def say(phase, msg):
@@ -588,6 +638,10 @@ def kernel_phase(st, cfg, dev):
               ("box nx=44 band order", reordered_grid(box(44), "band")[0])]
     if hasattr(cfg, "yearly_grid"):     # absent from an older --tree
         shapes.append(("cavern_interlayer_1200", cfg.yearly_grid(st)))
+    if hasattr(cfg, "TM_CYCLIC"):       # absent from an older --tree
+        shapes += [(cfg.TM_CYCLIC[p][1],
+                    cfg.band_grid(st, *cfg.TM_CYCLIC[p][:2]))
+                   for p in ("tmcyc_regular1200", "tmcyc_interlayer600")]
     for shape, grid in shapes:
         E, N = grid.n_elems, grid.n_nodes
         kern = MomentumKernel(grid, dev)
@@ -1495,6 +1549,150 @@ def yearly_phase(st, cfg, dev, tmp):
     return band.launches, band.launches / total_steps
 
 
+# phase 18: the 10 steps after the first, timed in chunks; the sweep-off
+# run's field tolerance is TMCYC_SPREAD times the JAX package's own spread
+# between its 2level and dense preconditioners at the golden's steps
+# (the golden's dense.* keys), at most 1e-5 max|ref|
+TMCYC_CHUNKS = (2, 2, 2, 2, 2)
+TMCYC_SPREAD = 100.0
+TMCYC_HELD = ("u_1", "T_1", "sig_v_1", "u", "T", "p", "q")
+
+
+def tmcyc_tolerance(golden):
+    """(tolerance, spread): the spread is the largest field distance
+    between the JAX package's 2level and dense runs of the golden."""
+    spread = max(float(golden[f"dense.{k}"]) for k in TMCYC_HELD)
+    return min(TMCYC_SPREAD * spread, 1e-5), spread
+
+
+def tmcyc_run(st, cfg, dev, path, fp32_phase):
+    """One way of a phase-18 path: built on the card with the port's CUDA
+    "auto" choices (band kernel, dense preconditioner) and ``fp32_phase``;
+    the elastic response, the first step alone, then the 10 more of
+    bench_tm_cyclic in ``TMCYC_CHUNKS``."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eq, heat = cfg.tm_cyclic_path(st, path, device=dev, precond="auto",
+                                  fp32_phase=fp32_phase)
+    band = eq.kernel.band
+    if band is None:
+        raise AssertionError(f"tm_cyclic {path}: band kernel not "
+                             f"auto-selected on CUDA")
+    band.launches = 0
+    sweeps = []
+    real = eq._fp32_sweep
+
+    def watched(*args, **kw):
+        out = real(*args, **kw)
+        sweeps.append(out[4] > 0)       # iterations: 0 when rejected
+        return out
+    eq._fp32_sweep = watched
+    cfg.tm_cyclic_init(eq, heat)
+    torch.cuda.synchronize()
+    run = {"elastic_s": time.perf_counter() - t0,
+           "elastic_krylov": eq.solver_stats[0],
+           "u_elastic": eq.u.cpu().numpy()}
+    need_band(f"tm_cyclic {path}", eq)
+    t0 = time.perf_counter()
+    rows = [cfg.tm_cyclic_run(eq, heat, 1)]
+    torch.cuda.synchronize()
+    run["first_s"] = time.perf_counter() - t0
+    run.update({f"{k}_1": v for k, v in cfg.tm_cyclic_fields(eq,
+                                                             heat).items()})
+    first_launches, chunks, t_first = band.launches, [], 2 * HOUR
+    for n in TMCYC_CHUNKS:
+        t0 = time.perf_counter()
+        rows.append(cfg.tm_cyclic_run(eq, heat, n, t_first=t_first))
+        torch.cuda.synchronize()
+        chunks.append((time.perf_counter() - t0) / n)
+        t_first += n * HOUR
+    run.update(cfg.tm_cyclic_fields(eq, heat, pq=True))
+    run.update(rows=np.concatenate(rows), chunk_ms=[1e3 * s for s in chunks],
+               launches=band.launches,
+               launches_per_step=(band.launches - first_launches)
+               / sum(TMCYC_CHUNKS),
+               sweeps=len(sweeps), accepted=sum(sweeps),
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               E=eq.grid.n_elems, N=eq.grid.n_nodes)
+    return run
+
+
+def tm_cyclic_phase(st, cfg, dev, card):
+    """Phase 18; returns {path: (band launches, launches per step)} over
+    both ways of each path."""
+    with open(os.path.join(ROOT, "baseline_measured.json")) as f:
+        baseline = json.load(f)
+    out = {}
+    for path, (_, _, bkey) in cfg.TM_CYCLIC.items():
+        golden = np.load(GOLDEN.format(path))
+        ref_rows = golden["rows"]
+        tol, spread = tmcyc_tolerance(golden)
+        runs = {"off": tmcyc_run(st, cfg, dev, path, False),
+                "auto": tmcyc_run(st, cfg, dev, path, "auto")}
+        off, on = runs["off"], runs["auto"]
+        e_el = rel_err(off["u_elastic"], golden["u_elastic"])
+        if not e_el <= 1e-8:
+            raise AssertionError(f"tm_cyclic {path}: elastic u {e_el:.2e} "
+                                 f"> 1e-8 of the golden")
+        if not np.array_equal(off["rows"][:, 5], ref_rows[:, 5]):
+            raise AssertionError(f"tm_cyclic {path} sweep off: converged "
+                                 f"{off['rows'][:, 5].tolist()} vs golden "
+                                 f"{ref_rows[:, 5].tolist()}")
+        d_it = int(np.abs(off["rows"][:, 2] - ref_rows[:, 2]).max())
+        if d_it > 1:
+            raise AssertionError(f"tm_cyclic {path} sweep off: fixed-point "
+                                 f"counts {off['rows'][:, 2].tolist()} vs "
+                                 f"golden {ref_rows[:, 2].tolist()}")
+        errs = {k: within(f"tm_cyclic {path} sweep off {k}", off[k],
+                          golden[k], tol) for k in TMCYC_HELD}
+        if not (on["rows"][:, 5] >= ref_rows[:, 5]).all():
+            raise AssertionError(f"tm_cyclic {path} sweep auto: converged "
+                                 f"{on['rows'][:, 5].tolist()} where the "
+                                 f"golden's {ref_rows[:, 5].tolist()}")
+        if not on["sweeps"]:
+            raise AssertionError(f"tm_cyclic {path}: fp32_phase 'auto' ran "
+                                 f"no f32 sweep on CUDA")
+        dist = {k: rel_err(on[k], off[k]) for k in TMCYC_HELD}
+        base = baseline[bkey]["s_per_step"]
+        for way, r in runs.items():
+            rows = r["rows"]
+            ms = float(np.median(r["chunk_ms"]))
+            vs = (f"vs JAX golden (2level, cumsum; JAX 2level-vs-dense "
+                  f"spread {spread:.2e}, tolerance {tol:.2e} max|ref|): "
+                  f"elastic u {e_el:.2e}, "
+                  + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
+                  + f"; fixed-point counts within {d_it} of the golden's"
+                  if way == "off" else
+                  "fields vs the sweep-off run (reported, not held): "
+                  + ", ".join(f"{k} {e:.2e}" for k, e in dist.items()))
+            say("tm_cyclic",
+                f"{path} sweep {way}: E={r['E']} N={r['N']}; elastic "
+                f"{r['elastic_s']:.2f} s (dense build included, "
+                f"{r['elastic_krylov']} Krylov); first step "
+                f"{1e3 * r['first_s']:.1f} ms; {int(rows[:, 5].sum())}/"
+                f"{len(rows)} steps converged (golden "
+                f"{int(ref_rows[:, 5].sum())}); {ms:.1f} ms/step (median of "
+                f"{len(TMCYC_CHUNKS)} chunks of {TMCYC_CHUNKS[0]}: "
+                + ", ".join(f"{c:.1f}" for c in r["chunk_ms"])
+                + f"); per step {rows[:, 2].mean():.2f} fixed-point it "
+                f"(golden {ref_rows[:, 2].mean():.2f}), "
+                f"{rows[:, 4].mean():.1f} Krylov it (golden "
+                f"{ref_rows[:, 4].mean():.1f}, 2level on the CPU), "
+                f"{rows[:, 0].mean():.1f} heat CG it; band launches "
+                f"{r['launches']}, {r['launches_per_step']:.1f} per step "
+                f"after the first; f32 sweeps run {r['sweeps']}, accepted "
+                f"{r['accepted']}; peak device memory {r['peak_gib']:.2f} "
+                f"GiB; 1-core CPU JAX baseline (baseline_measured.json "
+                f"{bkey}) {base:.2f} s/step = {1e3 * base / ms:.1f}x this "
+                f"run; {vs}; {card}")
+        steps = sum(len(r["rows"]) for r in runs.values())
+        launches = sum(r["launches"] for r in runs.values())
+        out[path] = (launches, launches / steps)
+    return out
+
+
 def to_file_order(ref_grid, grid, u, sig_v):
     """Nodal ``u`` and element ``sig_v`` of ``grid`` in the node and
     element order of ``ref_grid`` (the same mesh, renumbered): nodes are
@@ -1781,27 +1979,13 @@ def hold_example(name, rec, ref):
     return worst
 
 
-@contextlib.contextmanager
-def sweep_off(st):
-    """While active, every momentum equation's solver settings get
-    ``fp32_phase=False``, whatever the script asked for."""
-    base = st.LinearMomentumBase
-    real = base.set_solver
-
-    def set_solver(self, solver):
-        real(self, dataclasses.replace(solver, fp32_phase=False))
-    base.set_solver = set_solver
-    try:
-        yield
-    finally:
-        base.set_solver = real
-
-
 def examples_phase(st, cfg, dev, tmp, card):
     """Phase 17; returns the DIA kernel's (launches, launches per step)
     over the examples that run on it."""
-    with sweep_off(st):
-        return run_examples(st, cfg, dev, tmp, card)
+    with cfg.fp32_forced(st, False):
+        out = run_examples(st, cfg, dev, tmp, card)
+    triaxial_sweep(st, cfg, dev, tmp, card)
+    return out
 
 
 def run_examples(st, cfg, dev, tmp, card):
@@ -1812,6 +1996,8 @@ def run_examples(st, cfg, dev, tmp, card):
         ref = {k[len("card."):]: golden[k] for k in golden.files
                if k.startswith("card.")}
         run = os.path.join(tmp, "examples", name)
+        kwargs = cfg.example_kwargs(st, name, kwargs,
+                                    os.path.join(tmp, "grids", name))
         with kernel_instances(st) as made, timed_saves(st) as saves, \
                 contextlib.redirect_stdout(io.StringIO()):
             torch.cuda.synchronize()
@@ -1837,6 +2023,13 @@ def run_examples(st, cfg, dev, tmp, card):
             f"{k} kernel {n} launches, {n / n_steps:.1f} per step"
             for k, n in launches.items() if made[k]) or \
             "no hand kernel on this path"
+        if name == "tm_cavern":
+            if made["band"] or made["dia"]:
+                raise AssertionError("examples tm_cavern: a hand kernel "
+                                     "was built on a Morton-ordered mesh")
+            kernel = ("no hand kernel on this path: the script loads its "
+                      "mesh in Morton order, which neither the band nor "
+                      "the block-DIA plan takes (the cumsum operator)")
         extra = ""
         if name == "yearly":
             if not (result["max_error"] <= 1e-8 and result["steps"] > 0):
@@ -1910,6 +2103,87 @@ def run_examples(st, cfg, dev, tmp, card):
                         f"parameters vs JAX golden {worst:.2e} relative "
                         f"(<=1e-6); {card}")
     return dia_launches, dia_launches / dia_steps
+
+
+# with the f32 sweep on, 1_triaxial's final fields move by 1.6e-3 (Fvp)
+# to 6.9% (eps_cr) of max|ref| in the JAX package itself when only the
+# round-off of its f32 Krylov iterates changes (the jacobi preconditioner
+# for 2level; 1e-10 with the sweep off): the card's run is held to this
+# many times that spread, per field (the golden's spread.* keys)
+TRIAX_SWEEP_SPREAD = 10.0
+
+
+def triaxial_sweep(st, cfg, dev, tmp, card):
+    """Phase 17's last run: 1_triaxial at its defaults with the f32 sweep
+    forced on, against tests/golden/torch_port_examples_triaxial_sweep.npz
+    (the JAX script on the CPU with the sweep forced on): every step
+    converged, the outputs and the last save time the golden's, each
+    final field within ``TRIAX_SWEEP_SPREAD`` times the JAX package's own
+    round-off spread of that field; the dt halvings and fixed-point
+    counts reported beside the golden's."""
+    import torch
+    name = "triaxial_sweep"
+    script, _, kwargs = cfg.SWEEP_RUNS[name]
+    golden = np.load(GOLDEN.format(f"examples_{name}"))
+    ref = {k[len("card."):]: golden[k] for k in golden.files
+           if k.startswith("card.")}
+    run = os.path.join(tmp, "examples", name)
+    sweeps, err = [], io.StringIO()
+    real = st.LinearMomentum._fp32_sweep
+
+    def watched(self, *args, **kw):
+        out = real(self, *args, **kw)
+        sweeps.append(out[4] > 0)
+        return out
+    st.LinearMomentum._fp32_sweep = watched
+    try:
+        with kernel_instances(st) as made, cfg.fp32_forced(st, True), \
+                contextlib.redirect_stdout(io.StringIO()), \
+                contextlib.redirect_stderr(err):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cfg.run_example("safeincave_torch", script, run, kwargs,
+                            device=dev)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+    finally:
+        st.LinearMomentum._fp32_sweep = real
+    out_root = os.path.join(run, "output")
+    with open(os.path.join(out_root, "case_0", "log.txt")) as f:
+        rows = cfg.screen_rows(f.read().splitlines())
+    halvings = err.getvalue().count("halving dt")
+    if not (len(rows) and (rows[:, 1] <= 1e-8).all()):
+        raise AssertionError(f"examples {name}: steps {rows.tolist()}")
+    rec = cfg.example_record(out_root,
+                             st.PostProcessingTools.read_timeseries)
+    fields = [k for k in ref if not (k.endswith(".times") or
+                                     k.endswith("log"))]
+    if set(rec) != set(ref) or \
+            rec["case_0.u.times"][-1] != ref["case_0.u.times"][-1]:
+        raise AssertionError(f"examples {name}: outputs {sorted(rec)} or "
+                             f"their last save time differ from the "
+                             f"golden's")
+    errs = {k: within(f"examples {name} {k}", rec[k], ref[k],
+                      TRIAX_SWEEP_SPREAD * float(golden[f"spread.{k}"]))
+            for k in fields}
+    counts, want = rec["case_0.log"], ref["case_0.log"]
+    launches = sum(op.launches for op in made["dia"])
+    say("examples", f"{script} with the f32 sweep forced on: {len(rows)} "
+                    f"step rows, all converged (golden {len(want)}); "
+                    f"{halvings} dt halvings (the JAX golden "
+                    f"{int(golden['halvings.card'])}, the JAX run with "
+                    f"jacobi {int(golden['halvings.jacobi'])}); "
+                    f"{secs:.2f} s, {1e3 * secs / len(rows):.1f} ms/step; "
+                    f"f32 sweeps run {len(sweeps)}, accepted {sum(sweeps)}; "
+                    f"fixed-point counts {counts.astype(int).tolist()} vs "
+                    f"golden {want.astype(int).tolist()} (reported); final "
+                    f"fields vs the JAX golden with the sweep on, each "
+                    f"beside the JAX package's own round-off spread (held "
+                    f"at {TRIAX_SWEEP_SPREAD:g}x): "
+                    + ", ".join(f"{k.split('.', 1)[1]} {e:.2e} (spread "
+                                f"{float(golden[f'spread.{k}']):.2e})"
+                                for k, e in errs.items())
+                    + f"; DIA kernel {launches} launches; {card}")
 
 
 def halo_phase(st, cfg, dev, card):
@@ -2487,8 +2761,8 @@ def main():
                     "stage records to RESULT; 'off' runs without the f32 "
                     "sweep")
     ap.add_argument("--phase", choices=("tm", "tm_box", "lag", "yearly",
-                                        "order", "point", "examples", "halo",
-                                        "cards"),
+                                        "order", "point", "examples",
+                                        "tm_cyclic", "halo", "cards"),
                     help="after the build, run this phase alone (no kernel "
                     "JSON and no ok line); 'cards' needs 4 cards")
     args = ap.parse_args()
@@ -2553,6 +2827,7 @@ def main():
                    "point": lambda: point_phase(st, cfg, dev),
                    "examples": lambda: examples_phase(st, cfg, dev, tmp,
                                                       card),
+                   "tm_cyclic": lambda: tm_cyclic_phase(st, cfg, dev, card),
                    "halo": lambda: halo_phase(st, cfg, dev, card),
                    "cards": lambda: cards_phase(st, cfg),
                    }[args.phase](),
@@ -2684,6 +2959,8 @@ def main():
     # 17. the examples tree through the twins' main ---------------------- #
     with tempfile.TemporaryDirectory() as tmp:
         examples = examples_phase(st, cfg, dev, tmp, card)
+    # 18. bench.py's TM-cyclic configurations on the band kernel --------- #
+    tm_cyclic = tm_cyclic_phase(st, cfg, dev, card)
     # 16. the parallel layer and the app runner; last, as it profiles ----- #
     halo_phase(st, cfg, dev, card)
 
@@ -2691,16 +2968,16 @@ def main():
     paths = {BAND["name"]: {"main": (launches, band_per_step),
                             "sim": (sim_launches, sim_per_step),
                             "tm": (tm_launches, tm_per_step),
-                            "lag": lag, "yearly": yearly},
+                            "lag": lag, "yearly": yearly, **tm_cyclic},
              DIA["name"]: {"box": (launches_box, dia_per_step),
                            "json": (json_launches, json_per_step),
                            "tm_box": (tm_box_launches, tm_box_per_step),
                            "examples": examples}}
     for row in kernel_rows:
         by_path = paths[row["name"]]
-        # the row of the 1200 mesh reports the path that runs at its shape
-        own = "yearly" if row["shape"].startswith("cavern_interlayer_1200") \
-            else next(iter(by_path))
+        # a row of a mesh reports the path that runs at its shape
+        own = next((p for mesh, p in OWN_PATH.items()
+                    if row["shape"].startswith(mesh)), next(iter(by_path)))
         row["launches"], row["launches_per_step"] = by_path[own]
         row["launches_by_path"] = {k: n for k, (n, _) in by_path.items()}
         row["launches_per_step_by_path"] = {k: r for k, (_, r)

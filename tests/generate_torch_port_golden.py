@@ -294,15 +294,45 @@ def _example(name):
         for sched, kw in [("card", card_kw)] + (
                 [("cpu", cpu_kw)] if cpu_kw != card_kw else []):
             run = os.path.join(tmp, sched)
-            if name == "thermal_cavern":
-                kw = {**kw, "grid_dir": cfg.reference_named_proxy(
-                    os.path.join(tmp, "grid"))}
+            kw = cfg.example_kwargs(sc, name, kw, os.path.join(tmp, "grid"))
             cfg.run_example("safeincave_tpu", script, run, kw)
             rec = cfg.example_record(os.path.join(run, "output"),
                                      pp.read_timeseries)
             data.update({f"{sched}.{k}": v for k, v in rec.items()})
         return data
     return make
+
+
+def triaxial_sweep(tmp):
+    """1_triaxial at its defaults with the f32 sweep forced on (``card.``
+    keys, and ``halvings.card``: the dt halvings of the run), then the
+    same with the jacobi preconditioner, which changes nothing but the
+    f32 Krylov iterates' round-off: ``spread.<field>`` is that run's
+    distance from the first (max|diff| / max|ref|), ``halvings.jacobi``
+    its halvings."""
+    import contextlib
+    import io
+    import safeincave_tpu.postproc as pp
+    script, _, kw = cfg.SWEEP_RUNS["triaxial_sweep"]
+    data = {}
+    for way, extra in (("card", {}), ("jacobi", {"precond": "jacobi"})):
+        run, err = os.path.join(tmp, way), io.StringIO()
+        with cfg.fp32_forced(sc, True, **extra), \
+                contextlib.redirect_stderr(err):
+            cfg.run_example("safeincave_tpu", script, run, kw)
+        rec = cfg.example_record(os.path.join(run, "output"),
+                                 pp.read_timeseries)
+        data[f"halvings.{way}"] = np.asarray(
+            err.getvalue().count("halving dt"))
+        if way == "card":
+            data.update({f"card.{k}": v for k, v in rec.items()})
+            continue
+        data.update({f"spread.{k}": np.asarray(
+            np.abs(v - data[f"card.{k}"]).max()
+            / np.abs(data[f"card.{k}"]).max())
+            for k, v in rec.items()
+            if not (k.endswith(".times") or k.endswith("log"))})
+    return data
 
 
 def _fit(model, params0, observed, **kw):
@@ -350,6 +380,50 @@ def _calibration(name):
     return make
 
 
+def _tmcyc_run(path, precond):
+    """One TM-cyclic path as bench_tm_cyclic drives it: the elastic
+    response, the first step alone, then TM_CYCLIC_STEPS more."""
+    eq, heat = cfg.tm_cyclic_path(sc, path, precond=precond,
+                                  auto_backend=False)
+    cfg.tm_cyclic_init(eq, heat)
+    out = {"u_elastic": np.asarray(eq.u)}
+    rows1 = cfg.tm_cyclic_run(eq, heat, 1)
+    out.update({f"{k}_1": v for k, v in cfg.tm_cyclic_fields(eq,
+                                                             heat).items()})
+    rows = cfg.tm_cyclic_run(eq, heat, cfg.TM_CYCLIC_STEPS,
+                             t_first=2 * cfg.HOUR)
+    out["rows"] = np.concatenate([rows1, rows])
+    out.update(cfg.tm_cyclic_fields(eq, heat, pq=True))
+    return out
+
+
+def _dense_ready():
+    """safeincave_tpu/fem/momentum.py's ``_dense_inverse_cached`` reads
+    ``os.environ`` without importing ``os`` (a NameError on every
+    ``precond="dense"`` build); the module gets the name here, and the
+    package's files stay as they are."""
+    import safeincave_tpu.fem.momentum as jm
+    if not hasattr(jm, "os"):
+        jm.os = os
+
+
+def _tm_cyclic(path):
+    """bench.py's TM-cyclic configuration ``path`` on the 2level
+    preconditioner and the cumsum operator; then the same run on the dense
+    preconditioner, whose distance from the first (``dense.*``: per field,
+    max|dense - 2level| / max|2level|) is the spread that two
+    preconditioners give under the fixed point's tolerance."""
+    def make(tmp):
+        ref = _tmcyc_run(path, "2level")
+        _dense_ready()
+        dense = _tmcyc_run(path, "dense")
+        spread = {f"dense.{k}": np.asarray(
+            np.abs(dense[k] - v).max() / np.abs(v).max())
+            for k, v in ref.items() if k != "rows"}
+        return {**ref, **spread, "dense.rows": dense["rows"]}
+    return make
+
+
 CASES = {"cavern600": lambda tmp: write_steps(_cavern600),
          "box17": lambda tmp: write_steps(_box17),
          "sim_cavern600": sim_cavern600, "json_box17": json_box17,
@@ -361,7 +435,9 @@ CASES = {"cavern600": lambda tmp: write_steps(_cavern600),
              {"adaptive_rtol": True}),
          "yearly_1200": yearly_1200, "point": point,
          "halo_cavern600": lambda tmp: write_steps(_halo_cavern600),
+         **{path: _tm_cyclic(path) for path in cfg.TM_CYCLIC},
          **{f"examples_{n}": _example(n) for n in cfg.EXAMPLE_RUNS},
+         "examples_triaxial_sweep": triaxial_sweep,
          **{f"examples_{n}": _calibration(n) for n in cfg.CALIBRATIONS}}
 
 

@@ -18,7 +18,8 @@ PLOT_ROOTS = {"thermal_cube": "output/thermal_cube",
               "tm_cube": "output/tm_cube", "cavern": "output",
               "thermal_cavern": "output/case_0",
               "interlayer": "output/nobian_interlayer",
-              "yearly": "output/nobian_yearly"}
+              "yearly": "output/nobian_yearly",
+              "tm_cavern": "output/case_1"}
 
 
 def jax_xdmf_text(field, times, saved, n_nodes, n_elems, folder):

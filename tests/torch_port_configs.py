@@ -14,6 +14,8 @@ production run (``yearly_*``) is examples/mechanics/nobian_yearly/main.py
 ``--full``; the calibration twins (``creep_model``, ``triaxial_twin``) are
 those of examples/mechanics/MaterialCalibration.
 """
+import contextlib
+import dataclasses
 import os
 
 import numpy as np
@@ -480,6 +482,201 @@ def elastic_init(eq):
     eq.update_eps_ne_rate_old()
 
 
+# -- bench.py's TM-cyclic configurations (BASELINE configs 4-5) ------------- #
+# path name: (bench.py's grid name, its fallback, the baseline_measured.json
+# row); bench.py:1106-1121 runs the three
+TM_CYCLIC = {
+    "tmcyc_regular1200": ("cavern_regular_1200_3D", "cavern_proxy_1200",
+                          "regular1200_tm"),
+    "tmcyc_interlayer600": ("cavern_interlayer_600_3D",
+                            "cavern_interlayer_proxy", "interlayer600_tm"),
+    "tmcyc_interlayer1200": ("cavern_interlayer_1200", None,
+                             "interlayer1200_tm"),
+}
+TM_CYCLIC_STEPS = 10        # bench_tm_cyclic's steps after the first
+
+
+def band_grid(pkg, grid_name, fallback=None):
+    """The mesh ``grid_name`` (``fallback`` first in grids/, as bench.py
+    finds it), band-ordered."""
+    return pkg.GridHandlerGMSH("geom", pkg.Utils.find_grid(
+        grid_name, fallback=fallback), reorder="band")
+
+
+def tm_cyclic(pkg, grid_name, device=None, precond="2level",
+              fp32_phase=False, auto_backend=True, fallback=None):
+    """bench.py's ``build_tm_cyclic`` line for line, on the band-ordered
+    mesh ``grid_name`` (``fallback`` first in grids/, as bench.py finds
+    it).  Its quirks are kept: the interlayer test is ``"nterlayer" in
+    region`` (so cavern_proxy_1200's "INTERLAYER" runs as single-region KV
+    + DC, with 10 +- 4 MPa on TOP and Cavern), and the heat Dirichlet ramp
+    goes on "Top" only.  Returns (momentum equation, heat equation)."""
+    dev = on(pkg, device)
+    grid = band_grid(pkg, grid_name, fallback)
+    regions = grid.get_subdomain_names()
+    has_inter = any("nterlayer" in r for r in regions)
+
+    def per_region(salt_val, inter_val, over_val=None):
+        if over_val is None:
+            over_val = salt_val
+        return np.asarray(grid.get_parameter(
+            {r: (inter_val if "nterlayer" in r
+                 else over_val if "verburden" in r else salt_val)
+             for r in regions}))
+
+    n = grid.n_elems
+    one = np.ones(n)
+    inter = per_region(0.0, 1.0, 0.0)
+    over = per_region(0.0, 0.0, 1.0)
+    salt = 1.0 - inter - over
+    eq = pkg.LinearMomentum(grid, theta=0.5, auto_backend=auto_backend,
+                            **dev)
+    eq.set_solver(pkg.SolverSettings(method="bicgstab", rtol=1e-12,
+                                     max_it=400, coarse_agg=8,
+                                     precond=precond, fp32_phase=fp32_phase))
+    mat = pkg.Material(n, **dev)
+    mat.set_density(2200.0 * salt + 2900.0 * inter + 2500.0 * over)
+    mat.add_to_elastic(pkg.Spring(102e9 * salt + 70e9 * inter + 35e9 * over,
+                                  0.30 * salt + 0.27 * inter + 0.25 * over))
+    mat.add_to_non_elastic(pkg.Viscoelastic(
+        per_region(105e11, 105e13, 105e13), 10e9 * one, 0.32 * one, **dev))
+    if has_inter:
+        mat.add_to_non_elastic(pkg.DislocationCreep(
+            1.9e-20 * salt, 51600 * one, 3.0 * one, name="ds_creep", **dev))
+        mat.add_to_non_elastic(pkg.MohrCoulombViscoplastic(
+            mu_1=1e-9 * inter, N_1=1.0 * one, cohesion=4.0 * one,
+            friction_angle=np.radians(35.0) * one,
+            dilation_angle=0.0 * one, sigma_t=1.0 * one, **dev))
+    else:
+        mat.add_to_non_elastic(pkg.DislocationCreep(
+            1.9e-20 * one, 51600 * one, 3.0 * one, name="ds_creep", **dev))
+    mat.add_to_thermoelastic(pkg.Thermoelastic(44e-6 * one, **dev))
+    mat.set_specific_heat_capacity(850.0 * one)
+    mat.set_thermal_conductivity(7.0 * one)
+    eq.set_material(mat)
+    T0 = 298.0
+    eq.set_T0(T0 * one)
+    eq.set_T(T0 * one)
+    eq.build_body_force([0.0, 0.0, 0.0])
+
+    names = grid.get_boundary_names()
+    momBC = pkg.MomentumBC
+    bc = momBC.BcHandler(eq)
+    tv = [0.0, 1e12]
+    for nm, comp in (("West", 0), ("South", 1), ("Bottom", 2),
+                     ("WEST", 0), ("SOUTH", 1), ("BOTTOM", 2)):
+        if nm in names:
+            bc.add_boundary_condition(momBC.DirichletBC(nm, comp, [0., 0.],
+                                                        tv))
+    t_sched = np.arange(0.0, 400 * HOUR, HOUR)
+    if has_inter:
+        p_sched = 8 * MPa + 2 * MPa * np.sin(2 * np.pi * t_sched
+                                             / (24 * HOUR))
+        for nm in ("Top", "TOP"):
+            if nm in names:
+                bc.add_boundary_condition(momBC.NeumannBC(
+                    nm, 2, 0.0, 0.0, [15 * MPa, 15 * MPa], tv, g=0.0))
+        if "Cavern" in names:
+            bc.add_boundary_condition(momBC.NeumannBC(
+                "Cavern", 2, 0.0, 0.0, list(p_sched), list(t_sched), g=0.0))
+    else:
+        p_sched = 10 * MPa + 4 * MPa * np.sin(2 * np.pi * t_sched
+                                              / (24 * HOUR))
+        for nm in ("Top", "TOP", "Cavern"):
+            if nm in names:
+                bc.add_boundary_condition(momBC.NeumannBC(
+                    nm, 2, 0.0, 0.0, list(p_sched), list(t_sched), g=0.0))
+    eq.set_boundary_conditions(bc)
+
+    heat = pkg.HeatDiffusion(grid, **dev)
+    heat.set_solver(pkg.SolverSettings(method="cg", rtol=1e-12, max_it=400))
+    heat.set_material(mat)
+    heat.set_initial_T(T0 * np.ones(grid.n_nodes))
+    heatBC = pkg.HeatBC
+    bc_h = heatBC.BcHandler(heat)
+    if "Top" in names:
+        bc_h.add_boundary_condition(heatBC.DirichletBC(
+            "Top", [T0, 293., 293.], [0.0, 12 * HOUR, 1e12]))
+    if "Cavern" in names:
+        bc_h.add_boundary_condition(heatBC.RobinBC(
+            "Cavern", [T0, 283., 283.], 5.0, [0.0, 24 * HOUR, 1e12]))
+    heat.set_boundary_conditions(bc_h)
+    return eq, heat
+
+
+def tm_cyclic_path(pkg, path, **kw):
+    """:func:`tm_cyclic` of a :data:`TM_CYCLIC` path name."""
+    grid_name, fallback, _ = TM_CYCLIC[path]
+    return tm_cyclic(pkg, grid_name, fallback=fallback, **kw)
+
+
+# bench.py's init_tm (bench.py:684-700) is bench_tm's initial state
+tm_cyclic_init = tm_init
+
+
+def tm_cyclic_run(eq, heat, n_steps, t_first=HOUR):
+    """bench_tm_cyclic's driver: ``solve_tm_time_steps`` at dt = 1 h, tol
+    1e-6, 20 fixed-point iterations, ``n_steps`` steps from ``t_first``;
+    returns the (n_steps, 6) stats rows."""
+    return np.asarray(eq.solve_tm_time_steps(
+        heat, [t_first + k * HOUR for k in range(n_steps)],
+        [HOUR] * n_steps, tol=1e-6, maxiter=20))
+
+
+SETUP_SKIP = {"eq", "heat", "grid", "kern", "kernel", "equation"}
+
+
+def setup_arrays(eq, heat):
+    """Everything a set-up gave the JAX package's ``eq`` and ``heat`` as
+    flat ``{path: numpy array}``: the material (its elements'
+    parameters), both boundary handlers' tables, the solver settings, the
+    initial temperatures and the body force.  Back-references to the
+    equations, the grid and the kernels are left out; None and strings
+    become strings."""
+    out, seen = {}, set()
+
+    def walk(obj, key):
+        mod = type(obj).__module__
+        if obj is None or isinstance(obj, (str, bool, int, float,
+                                           np.number)):
+            out[key] = np.asarray(str(obj) if obj is None else obj)
+        elif mod.startswith(("numpy", "jax")):
+            out[key] = np.asarray(obj)
+        elif isinstance(obj, (list, tuple)):
+            for i, x in enumerate(obj):
+                walk(x, f"{key}.{i}")
+        elif isinstance(obj, dict):
+            for k in sorted(obj, key=str):
+                walk(obj[k], f"{key}.{k}")
+        elif mod.startswith("safeincave_tpu") and id(obj) not in seen:
+            seen.add(id(obj))
+            for k, v in sorted(vars(obj).items()):
+                if k not in SETUP_SKIP and not k.startswith("_jit") \
+                        and not callable(v):
+                    walk(v, f"{key}.{k}")
+
+    for key, obj in (("mat", eq.mat), ("bc", eq.bc), ("heat_bc", heat.bc),
+                     ("solver", eq.solver), ("heat_solver", heat.solver),
+                     ("T0", eq.T0), ("Temp", eq.Temp), ("b_body", eq.b_body),
+                     ("heat_T", heat.T)):
+        walk(obj, key)
+    return out
+
+
+def tm_cyclic_fields(eq, heat, pq=False):
+    """What the TM-cyclic goldens keep of a state: u, T and sig_v, or
+    with ``pq`` the mean stress and the von Mises stress per element in
+    sig_v's place (a third of its bytes)."""
+    out = {"u": as_np(eq.u), "T": as_np(heat.T)}
+    sig = as_np(eq.sig_v)
+    if not pq:
+        return {**out, "sig_v": sig}
+    d = sig[:, :3] - sig[:, :3].mean(axis=1, keepdims=True)
+    return {**out, "p": sig[:, :3].mean(axis=1),
+            "q": np.sqrt(1.5 * (d ** 2).sum(axis=1)
+                         + 3.0 * (sig[:, 3:] ** 2).sum(axis=1))}
+
+
 # -- the yearly production run (examples/mechanics/nobian_yearly --full) ---- #
 YEARLY_CSV = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
                           "examples", "mechanics", "nobian_yearly", "data",
@@ -717,10 +914,13 @@ EXAMPLE_TREES = {"safeincave_tpu": os.path.join(ROOT, "examples"),
                                                   "examples")}
 YEARLY_OUT = os.path.join("output", "nobian_yearly")
 # name: (script, main's arguments in the CPU tests, on the card).  The card
-# runs each script's defaults but nobian_yearly: its CI scale (the
+# runs each script's defaults but two: nobian_yearly at its CI scale (the
 # documented "--dt-days 2" on the generated cavern, mesh_n 8) cut in depth
 # from 365 to 120 days, 60 steps and a checkpoint at step 32 (--full is
-# chip_smoke.py's phase 13).
+# chip_smoke.py's phase 13); thermomechanics/2_cavern, on
+# :func:`overburden_standin`, with its operation cut from 240 to 40 days
+# (80 steps at 0.5 day, one pressure cycle) so that its JAX golden runs in
+# minutes on the CPU.
 EXAMPLE_RUNS = {
     "thermal_cube": ("thermal/1_cube/main.py", {}, {}),
     "triaxial": ("mechanics/1_triaxial/main.py",
@@ -740,7 +940,44 @@ EXAMPLE_RUNS = {
                          "5", "--mode", "stretch", "--out", YEARLY_OUT]},
                {"argv": ["--days", "120", "--dt-days", "2",
                          "--out", YEARLY_OUT]}),
+    "tm_cavern": ("thermomechanics/2_cavern/main.py",
+                  {"n_eq_steps": 2, "eq_days": 1.0, "op_days": 0.5},
+                  {"op_days": 40.0}),
 }
+# 1_triaxial with the f32 sweep forced on in both packages (on CUDA the
+# script's "auto" turns it on; the CPU keeps it off), at the CPU tests'
+# arguments and, on the card, at the script's defaults (48 steps)
+SWEEP_RUNS = {"triaxial_sweep": EXAMPLE_RUNS["triaxial"]}
+
+
+def example_kwargs(pkg, name, kwargs, grid_root):
+    """``kwargs`` of the example ``name`` with the mesh folder it needs
+    written under ``grid_root``: the stand-in overburden mesh for
+    thermomechanics/2_cavern, the reference-named proxy for the JAX
+    package's thermal/2_cavern (the port's twin finds the proxy itself)."""
+    if name == "tm_cavern":
+        return {**kwargs, "grid_dir": overburden_standin(pkg, grid_root)}
+    if name == "thermal_cavern" and pkg.__name__ == "safeincave_tpu":
+        return {**kwargs, "grid_dir": reference_named_proxy(grid_root)}
+    return kwargs
+
+
+@contextlib.contextmanager
+def fp32_forced(pkg, value, **settings):
+    """While active, every momentum equation of ``pkg`` gets
+    ``fp32_phase=value`` (and ``settings``) in its solver settings,
+    whatever the script asked for."""
+    base = pkg.LinearMomentumBase
+    real = base.set_solver
+
+    def set_solver(self, solver):
+        real(self, dataclasses.replace(solver, fp32_phase=value,
+                                       **settings))
+    base.set_solver = set_solver
+    try:
+        yield
+    finally:
+        base.set_solver = real
 # the calibration scripts: (script, Adam steps on the card)
 CALIBRATIONS = {"creep": "mechanics/MaterialCalibration/calibrate_creep.py",
                 "labdata": "mechanics/MaterialCalibration/"
@@ -822,4 +1059,53 @@ def reference_named_proxy(dst):
     with open(os.path.join(dst, "geom.msh"), "w") as f:
         f.write(text)
     return dst
+
+
+OVERBURDEN_GRID = "cavern_overburden_coarse"
+SIDES = ("West", "East", "South", "North")
+
+
+def overburden_standin(pkg, folder):
+    """A stand-in for the reference's cavern_overburden_coarse mesh, which
+    examples/thermomechanics/2_cavern/main.py needs and the repository
+    does not hold: ``pkg``'s catalog synthesis of that name (cavern_gen's
+    "overburden" family: a Salt body under an Overburden cap above z =
+    _Z1 + 110), each side face split into ``<side>_salt`` / ``<side>_ovb``
+    by its facet's centroid against the cap's level, written to
+    ``folder/geom.msh`` with ``pkg``'s ``write_msh``; beside it a
+    ``geom.geo`` whose lines 11-13 give ``ovb_thickness``,
+    ``salt_thickness`` and ``hanging_wall`` (cap's level less the
+    cavern's roof) as the script parses them.  It is not the reference's
+    mesh.  Returns ``folder``."""
+    from importlib import import_module
+    cg = import_module(pkg.__name__ + ".mesh.cavern_gen")
+    points, tets, tet_tags, tris, tri_tags, fd = cg._catalog_mesh_arrays(
+        OVERBURDEN_GRID)
+    z_ovb = cg._shape_family(cg.parse_grid_name(OVERBURDEN_GRID)[0])[2]
+    above = points[tris].mean(axis=1)[:, 2] > z_ovb
+    tag = max(t for t, _ in fd.values()) + 1
+    tri_tags = np.asarray(tri_tags).copy()
+    new_tags = tri_tags.copy()
+    for side in SIDES:
+        old = fd.pop(side)[0]
+        for suffix, where in (("salt", ~above), ("ovb", above)):
+            fd[f"{side}_{suffix}"] = (tag, 2)
+            new_tags[(tri_tags == old) & where] = tag
+            tag += 1
+    os.makedirs(folder, exist_ok=True)
+    pkg.mesh.write_msh(os.path.join(folder, "geom.msh"), points, tets,
+                       tet_tags, tris, new_tags, fd)
+    z_top = float(points[:, 2].max())
+    roof = float(points[np.unique(tris[tri_tags == fd["Cavern"][0]])][:, 2]
+                 .max())
+    lines = ["// Stand-in for cavern_overburden_coarse, synthesized by",
+             f"// {pkg.__name__}.mesh.cavern_gen (family \"overburden\");",
+             "// only the layer thicknesses below are read.", "//", "//",
+             "//", "//", "//", "//", "//",
+             f"ovb_thickness = {z_top - z_ovb!r};",
+             f"salt_thickness = {z_ovb!r};",
+             f"hanging_wall = {z_ovb - roof!r};"]
+    with open(os.path.join(folder, "geom.geo"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return folder
 
