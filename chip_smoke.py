@@ -268,6 +268,28 @@ Phases, one line each; any failure raises and the exit code is non-zero:
              per step, band launches per step, sweeps run and accepted,
              peak device memory, and the ratio to baseline_measured.json's
              1-core CPU JAX row.  Runs after phase 17, before phase 16.
+19. bench  - ``python3 bench_torch.py`` (the port's counterpart of
+             bench.py) in a child process on the card, every section but
+             TM-cyclic (phase 18 runs those three configurations twice; the
+             script stays inside its time): the cavern600 headline
+             (elastic response, warm-up steps 1-20, then steps 21-40 in 5
+             repeats from one saved state), the scale roofline on the
+             natural-order GridBox nx=44 (the streaming ceiling, the f32
+             and f64 DIA kernel, assembly, cumsum), the cavern600 matvec
+             roofline (cumsum f32 and f64, band f32), the coupled TM
+             configuration on cavern600 and the per-step host-sync loop
+             (~60-95 s).
+             Exit 0, exactly one stdout line with bench.py's keys, every
+             section run, the same fixed-point and Krylov counts in every
+             repeat, the band kernel launched in the headline and the DIA
+             kernel in the scale section.  Echoes the child's lines and
+             repeats the headline's median, min, max and counts on a line
+             of its own.
+20. gpu_tests - tests/test_torch_kernels_gpu.py with the ``gpu`` marker in
+             a child pytest on the card (``--noconftest``: tests/conftest.py
+             imports JAX, which the card's machine lacks); any failure or
+             skip, or no test run, fails the phase.  Phases 19 and 20 run
+             after phase 18, before phase 16.
 
 Phase 9 runs its case twice, with the f32 sweep as "auto" selects it and
 with ``fp32_phase=False``, and prints both lines.
@@ -313,7 +335,7 @@ runs phase 3 alone on the ``safeincave_torch`` package of another checkout
 the kernels in turns within one call; it prints the kernel JSON and the
 card, and no ``ok`` line.
 
-    python3 chip_smoke.py --phase tm|tm_box|lag|yearly|order|point|examples|tm_cyclic|halo
+    python3 chip_smoke.py --phase tm|tm_box|lag|yearly|order|point|examples|tm_cyclic|bench|gpu_tests|halo
 
 builds the kernels and runs that phase alone (no ``ok`` line).
 """
@@ -2751,6 +2773,97 @@ def cards_phase(st, cfg):
                      f"200 calls); {where}")
 
 
+# the headline keys of bench.py's stdout line, which bench_torch.py repeats
+BENCH_KEYS = ["metric", "unit", "value", "vs_baseline", "vs_baseline_measured"]
+# every section of bench_torch.py but TM-cyclic, whose three
+# configurations phase 18 runs twice: it keeps the full script well inside
+# its 1200 s on a slow machine
+BENCH_SECTIONS = ("headline", "scale", "matvec", "tm", "hostsync")
+
+
+def bench_phase(card):
+    """Phase 19: ``python3 bench_torch.py`` in a child on the card with
+    :data:`BENCH_SECTIONS`; exit 0, one stdout JSON line with bench.py's
+    keys, every section run, the headline in at least 5 repeats from one
+    state with the same counts, the band kernel launched in the headline
+    and the DIA kernel in the scale section.  Returns {kernel: (launches,
+    launches per step)} of the child's run."""
+    import torch
+    torch.cuda.empty_cache()
+    cmd = [sys.executable, os.path.join(ROOT, "bench_torch.py"),
+           "--sections", *BENCH_SECTIONS]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT,
+                       timeout=900)
+    secs = time.perf_counter() - t0
+    for ln in r.stderr.splitlines():
+        if not ln.startswith("bench_torch summary "):
+            say("bench", ln)
+    if r.returncode != 0:
+        raise AssertionError(f"bench_torch.py exited {r.returncode}")
+    out = [ln for ln in r.stdout.splitlines() if ln.strip()]
+    if len(out) != 1:
+        raise AssertionError(f"bench_torch.py printed {len(out)} stdout "
+                             f"lines, not one JSON line: {out}")
+    line = json.loads(out[0])
+    if sorted(line) != BENCH_KEYS or line["value"] <= 0:
+        raise AssertionError(f"bench_torch.py's line: {line}")
+    summary = json.loads(next(
+        ln for ln in r.stderr.splitlines()
+        if ln.startswith("bench_torch summary "))[len("bench_torch summary "):])
+    ran = summary["sections"]
+    missing = [k for k in BENCH_SECTIONS if not isinstance(ran.get(k), dict)]
+    if missing:
+        raise AssertionError(f"bench_torch.py sections not run: {missing}")
+    h = ran["headline"]
+    band = h["launches"].get("band_matvec", 0)
+    dia = ran["scale"]["launches"].get("dia_matvec", 0)
+    if h["repeats"] < 5 or any(c != h["counts"][0] for c in h["counts"]):
+        raise AssertionError(f"bench_torch.py headline: {h['repeats']} "
+                             f"repeats, counts {h['counts']}")
+    if band <= 0 or dia <= 0:
+        raise AssertionError(f"bench_torch.py: band launches {band} in the "
+                             f"headline, DIA launches {dia} in the scale "
+                             f"section")
+    say("bench", f"bench_torch.py --sections {' '.join(BENCH_SECTIONS)} "
+                 f"exit 0 in {secs:.1f} s: {line}; headline median "
+                 f"{1e3 * h['median_s']:.1f} ms/step (min "
+                 f"{1e3 * h['min_s']:.1f}, max {1e3 * h['max_s']:.1f}) over "
+                 f"{h['repeats']} repeats of steps {h['window'][0]}-"
+                 f"{h['window'][1]} from one saved state, the same counts in "
+                 f"each: {h['fp_per_step']:.2f} fixed-point and "
+                 f"{h['krylov_per_step']:.1f} Krylov it/step, "
+                 f"{h['launches_per_step'].get('band_matvec', 0):.1f} band "
+                 f"launches/step, {h['retries']} f64 retries; band launches "
+                 f"{summary['launches'].get('band_matvec', 0)}, DIA launches "
+                 f"{summary['launches'].get('dia_matvec', 0)} over the run; "
+                 f"{card}")
+    return {BAND["name"]: (band, h["launches_per_step"].get("band_matvec",
+                                                            0.0)),
+            DIA["name"]: (dia, None)}
+
+
+def gpu_tests_phase():
+    """Phase 20: tests/test_torch_kernels_gpu.py with the ``gpu`` marker in
+    a child pytest on the card, without tests/conftest.py (it imports JAX,
+    which this machine lacks); fails when a test fails, skips or none
+    ran."""
+    cmd = [sys.executable, "-m", "pytest", "--noconftest", "-m", "gpu", "-q",
+           "-p", "no:cacheprovider", "tests/test_torch_kernels_gpu.py"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT,
+                       timeout=600)
+    lines = r.stdout.strip().splitlines()
+    tail = lines[-1] if lines else ""
+    passed = int(tail.split(" passed")[0].split()[-1]) \
+        if " passed" in tail else 0
+    if r.returncode != 0 or passed == 0 or "skipped" in tail:
+        raise AssertionError(f"GPU tests: exit {r.returncode}, "
+                             f"{tail!r}\n{r.stdout[-3000:]}{r.stderr[-2000:]}")
+    say("gpu_tests", f"tests/test_torch_kernels_gpu.py -m gpu: {tail} "
+                     f"(exit 0, {time.perf_counter() - t0:.1f} s)")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tree", help="run phase 3 alone on the "
@@ -2762,7 +2875,8 @@ def main():
                     "sweep")
     ap.add_argument("--phase", choices=("tm", "tm_box", "lag", "yearly",
                                         "order", "point", "examples",
-                                        "tm_cyclic", "halo", "cards"),
+                                        "tm_cyclic", "bench", "gpu_tests",
+                                        "halo", "cards"),
                     help="after the build, run this phase alone (no kernel "
                     "JSON and no ok line); 'cards' needs 4 cards")
     args = ap.parse_args()
@@ -2828,6 +2942,8 @@ def main():
                    "examples": lambda: examples_phase(st, cfg, dev, tmp,
                                                       card),
                    "tm_cyclic": lambda: tm_cyclic_phase(st, cfg, dev, card),
+                   "bench": lambda: bench_phase(card),
+                   "gpu_tests": gpu_tests_phase,
                    "halo": lambda: halo_phase(st, cfg, dev, card),
                    "cards": lambda: cards_phase(st, cfg),
                    }[args.phase](),
@@ -2961,6 +3077,9 @@ def main():
         examples = examples_phase(st, cfg, dev, tmp, card)
     # 18. bench.py's TM-cyclic configurations on the band kernel --------- #
     tm_cyclic = tm_cyclic_phase(st, cfg, dev, card)
+    # 19. bench_torch.py in a child; 20. the GPU tests in a child --------- #
+    bench = bench_phase(card)
+    gpu_tests_phase()
     # 16. the parallel layer and the app runner; last, as it profiles ----- #
     halo_phase(st, cfg, dev, card)
 
@@ -2968,11 +3087,13 @@ def main():
     paths = {BAND["name"]: {"main": (launches, band_per_step),
                             "sim": (sim_launches, sim_per_step),
                             "tm": (tm_launches, tm_per_step),
-                            "lag": lag, "yearly": yearly, **tm_cyclic},
+                            "lag": lag, "yearly": yearly, **tm_cyclic,
+                            "bench": bench[BAND["name"]]},
              DIA["name"]: {"box": (launches_box, dia_per_step),
                            "json": (json_launches, json_per_step),
                            "tm_box": (tm_box_launches, tm_box_per_step),
-                           "examples": examples}}
+                           "examples": examples,
+                           "bench": bench[DIA["name"]]}}
     for row in kernel_rows:
         by_path = paths[row["name"]]
         # a row of a mesh reports the path that runs at its shape

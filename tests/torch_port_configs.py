@@ -626,13 +626,13 @@ def tm_cyclic_run(eq, heat, n_steps, t_first=HOUR):
 SETUP_SKIP = {"eq", "heat", "grid", "kern", "kernel", "equation"}
 
 
-def setup_arrays(eq, heat):
-    """Everything a set-up gave the JAX package's ``eq`` and ``heat`` as
-    flat ``{path: numpy array}``: the material (its elements'
-    parameters), both boundary handlers' tables, the solver settings, the
-    initial temperatures and the body force.  Back-references to the
-    equations, the grid and the kernels are left out; None and strings
-    become strings."""
+def setup_arrays(eq, heat=None):
+    """Everything a set-up gave ``eq`` and ``heat`` (of either package;
+    ``heat`` may be None) as flat ``{path: numpy array}``: the material
+    (its elements' parameters), the boundary handlers' tables, the solver
+    settings, the initial temperatures and the body force.  Back-references
+    to the equations, the grid and the kernels are left out, and so are the
+    port's ``torch.device`` attributes; None and strings become strings."""
     out, seen = {}, set()
 
     def walk(obj, key):
@@ -642,23 +642,30 @@ def setup_arrays(eq, heat):
             out[key] = np.asarray(str(obj) if obj is None else obj)
         elif mod.startswith(("numpy", "jax")):
             out[key] = np.asarray(obj)
+        elif mod == "torch" and hasattr(obj, "detach"):
+            out[key] = obj.detach().cpu().numpy()
         elif isinstance(obj, (list, tuple)):
             for i, x in enumerate(obj):
                 walk(x, f"{key}.{i}")
         elif isinstance(obj, dict):
             for k in sorted(obj, key=str):
                 walk(obj[k], f"{key}.{k}")
-        elif mod.startswith("safeincave_tpu") and id(obj) not in seen:
+        elif mod.startswith(("safeincave_tpu", "safeincave_torch")) and \
+                id(obj) not in seen:
             seen.add(id(obj))
             for k, v in sorted(vars(obj).items()):
                 if k not in SETUP_SKIP and not k.startswith("_jit") \
                         and not callable(v):
                     walk(v, f"{key}.{k}")
 
-    for key, obj in (("mat", eq.mat), ("bc", eq.bc), ("heat_bc", heat.bc),
-                     ("solver", eq.solver), ("heat_solver", heat.solver),
+    for key, obj in (("mat", eq.mat), ("bc", eq.bc), ("heat_bc", heat),
+                     ("solver", eq.solver), ("heat_solver", heat),
                      ("T0", eq.T0), ("Temp", eq.Temp), ("b_body", eq.b_body),
-                     ("heat_T", heat.T)):
+                     ("heat_T", heat)):
+        if key.startswith("heat"):
+            if heat is None:
+                continue
+            obj = getattr(heat, key[5:])
         walk(obj, key)
     return out
 
