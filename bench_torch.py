@@ -64,9 +64,6 @@ REFERENCE_SECONDS_PER_STEP = 2.0  # documented estimate, see bench.py
 # "nominal unknown"
 NOMINAL_GBPS = {"NVIDIA H100 80GB HBM3": 3350.0}
 SECTIONS = ("headline", "scale", "tm_cyclic", "matvec", "tm", "hostsync")
-# bench.py's budget gates: a section starts only with this many seconds left
-GATES = {"scale": 90, "tm_cyclic": 130, "matvec": 60, "tm": 150,
-         "hostsync": 180}
 # bench.py's TM-cyclic configurations: (grid, fallback, label, baseline row)
 TM_CYCLIC = (("cavern_regular_1200_3D", "cavern_proxy_1200",
               "regular1200-TM", "regular1200_tm"),
@@ -76,6 +73,12 @@ TM_CYCLIC = (("cavern_regular_1200_3D", "cavern_proxy_1200",
               "interlayer600-TM", "interlayer600_tm"))
 DT = 3600.0
 MPa = 1e6
+# bench.py's Krylov settings, its supports and its loaded faces
+SETTINGS = dict(method="bicgstab", rtol=1e-12, max_it=400, coarse_agg=8)
+FIXED = [("WEST", 0), ("SOUTH", 1), ("BOTTOM", 2),
+         ("West", 0), ("South", 1), ("Bottom", 2)]
+LOADED = ["EAST", "NORTH", "TOP", "East", "North", "Top",
+          "Cavern", "CAVERN", "Wall", "WALL"]
 
 
 def log(*a):
@@ -205,13 +208,84 @@ def moved(tag, eq, before):
 # --------------------------------------------------------------------------- #
 # 1. the benchmark equation (bench.py:build)
 # --------------------------------------------------------------------------- #
+# The set-up functions take the package module (``pkg``, default
+# safeincave_torch, the only one this script passes): the JAX package's
+# public API is the same, and the parity tests set the JAX reference up
+# through these functions too.
+def on(pkg, device):
+    """``device`` as keyword arguments of ``pkg``'s constructors (none for
+    the JAX package, nor when ``device`` is None: the port's default)."""
+    if device is None or pkg.__name__ != "safeincave_torch":
+        return {}
+    return {"device": device}
+
+
+def bench_material(n, device=None, pkg=sc):
+    """bench.py's material: Spring + Kelvin-Voigt + dislocation creep +
+    Desai viscoplasticity on ``n`` elements."""
+    one = np.ones(n)
+    dev = on(pkg, device)
+    mat = pkg.Material(n, **dev)
+    mat.set_density(2200.0 * one)
+    mat.add_to_elastic(pkg.Spring(102e9 * one, 0.3 * one))
+    mat.add_to_non_elastic(pkg.Viscoelastic(105e11 * one, 10e9 * one,
+                                            0.32 * one, **dev))
+    mat.add_to_non_elastic(pkg.DislocationCreep(1.9e-20 * one, 51600 * one,
+                                                3.0 * one, **dev))
+    mat.add_to_non_elastic(pkg.ViscoplasticDesai(
+        mu_1=5.3665857009859815e-11 * one, N_1=3.1 * one,
+        a_1=1.965018496922832e-05 * one, eta=0.8275682807874163 * one,
+        n=3.0 * one, beta_1=0.0048 * one, beta=0.995 * one, m=-0.5 * one,
+        gamma=0.095 * one, sigma_t=5.0 * one, alpha_0=0.0022 * one, **dev))
+    return mat
+
+
+def bench_bcs(eq, pkg=sc):
+    """bench.py's supports (the first boundary pinned in all components
+    when no face has a known name) and the 24 h sinusoidal pressure of 10
+    +- 4 MPa on the loaded faces, on ``eq``'s grid."""
+    momBC = pkg.MomentumBC
+    names = eq.grid.get_boundary_names()
+    bc = momBC.BcHandler(eq)
+    tv = [0.0, 1e12]
+    fixed = [(nm, comp) for nm, comp in FIXED if nm in names] \
+        or [(names[0], comp) for comp in range(3)]
+    for nm, comp in fixed:
+        bc.add_boundary_condition(momBC.DirichletBC(nm, comp, [0., 0.], tv))
+    # the 24 h sinus keeps every window doing comparable nonlinear work
+    t_sched = np.arange(0.0, 400 * DT, DT)
+    p_sched = 10 * MPa + 4 * MPa * np.sin(2 * np.pi * t_sched / (24 * DT))
+    for nm in LOADED:
+        if nm in names:
+            bc.add_boundary_condition(momBC.NeumannBC(
+                nm, 2, 0.0, 0.0, list(p_sched), list(t_sched), g=0.0))
+    eq.set_boundary_conditions(bc)
+
+
+def bench_equation(grid, device=None, pkg=sc, eq_kw=None, **settings):
+    """bench.py's benchmark equation on ``grid``: theta 0.5,
+    :data:`SETTINGS` with ``settings`` beside them, :func:`bench_material`
+    at 298 K, no body force, :func:`bench_bcs`.  ``eq_kw`` goes to
+    ``LinearMomentum`` (``auto_backend``)."""
+    eq = pkg.LinearMomentum(grid, theta=0.5, **on(pkg, device),
+                            **(eq_kw or {}))
+    eq.set_solver(pkg.SolverSettings(**SETTINGS, **settings))
+    n = eq.n_elems
+    eq.set_material(bench_material(n, device, pkg))
+    eq.set_T0(298.0 * np.ones(n))
+    eq.set_T(298.0 * np.ones(n))
+    eq.build_body_force([0.0, 0.0, 0.0])
+    bench_bcs(eq, pkg)
+    return eq
+
+
 def build(device=None, lag_tangent=False, adaptive_rtol=False, backend=None):
     """bench.py's cavern benchmark equation on ``device`` (default: the
-    card).  ``backend`` ("band", "blockell" or "dia") forces a stiffness
-    backend and raises when it cannot be enabled."""
+    card): the band-ordered cavern600 mesh, or the box nx=17 when no cavern
+    mesh is found.  ``backend`` ("band", "blockell" or "dia") forces a
+    stiffness backend and raises when it cannot be enabled."""
     device = torch.device(device) if device is not None \
         else sc.default_device()
-    dev = {"device": device}
     try:
         cav = find_grid("cavern_regular_600_3D", fallback="cavern_proxy_600")
     except FileNotFoundError:
@@ -224,58 +298,9 @@ def build(device=None, lag_tangent=False, adaptive_rtol=False, backend=None):
         grid = sc.GridBox(Lx=600.0, Ly=600.0, Lz=800.0, nx=17, ny=17, nz=17)
         log(f"mesh: synthetic box ({grid.n_nodes} nodes, {grid.n_elems} "
             f"tets)")
-    names = grid.get_boundary_names()
-
-    eq = sc.LinearMomentum(grid, theta=0.5, **dev)
-    eq.set_solver(sc.SolverSettings(method="bicgstab", rtol=1e-12,
-                                    max_it=400, coarse_agg=8,
-                                    lag_tangent=lag_tangent,
-                                    adaptive_rtol=adaptive_rtol))
+    eq = bench_equation(grid, device, lag_tangent=lag_tangent,
+                        adaptive_rtol=adaptive_rtol)
     log(f"lag_tangent: {lag_tangent}  adaptive_rtol: {adaptive_rtol}")
-    n = eq.n_elems
-    one = np.ones(n)
-    mat = sc.Material(n, **dev)
-    mat.set_density(2200.0 * one)
-    mat.add_to_elastic(sc.Spring(102e9 * one, 0.3 * one))
-    mat.add_to_non_elastic(sc.Viscoelastic(105e11 * one, 10e9 * one,
-                                           0.32 * one, **dev))
-    mat.add_to_non_elastic(sc.DislocationCreep(1.9e-20 * one, 51600 * one,
-                                               3.0 * one, **dev))
-    mat.add_to_non_elastic(sc.ViscoplasticDesai(
-        mu_1=5.3665857009859815e-11 * one, N_1=3.1 * one,
-        a_1=1.965018496922832e-05 * one, eta=0.8275682807874163 * one,
-        n=3.0 * one, beta_1=0.0048 * one, beta=0.995 * one, m=-0.5 * one,
-        gamma=0.095 * one, sigma_t=5.0 * one, alpha_0=0.0022 * one, **dev))
-    eq.set_material(mat)
-    eq.set_T0(298.0 * one)
-    eq.set_T(298.0 * one)
-    eq.build_body_force([0.0, 0.0, 0.0])
-
-    momBC = sc.MomentumBC
-    bc = momBC.BcHandler(eq)
-    tv = [0.0, 1e12]
-    fixed = [("WEST", 0), ("SOUTH", 1), ("BOTTOM", 2),
-             ("West", 0), ("South", 1), ("Bottom", 2)]
-    loaded = ["EAST", "NORTH", "TOP", "East", "North", "Top",
-              "Cavern", "CAVERN", "Wall", "WALL"]
-    n_dir = 0
-    for nm, comp in fixed:
-        if nm in names:
-            bc.add_boundary_condition(momBC.DirichletBC(nm, comp, [0., 0.],
-                                                        tv))
-            n_dir += 1
-    if n_dir == 0:  # unknown naming: pin the first boundary in all components
-        for comp in range(3):
-            bc.add_boundary_condition(momBC.DirichletBC(names[0], comp,
-                                                        [0., 0.], tv))
-    # the 24 h sinus keeps every window doing comparable nonlinear work
-    t_sched = np.arange(0.0, 400 * DT, DT)
-    p_sched = 10 * MPa + 4 * MPa * np.sin(2 * np.pi * t_sched / (24 * DT))
-    for nm in loaded:
-        if nm in names:
-            bc.add_boundary_condition(momBC.NeumannBC(
-                nm, 2, 0.0, 0.0, list(p_sched), list(t_sched), g=0.0))
-    eq.set_boundary_conditions(bc)
     if backend:
         getattr(eq, f"enable_{backend}_matvec")()
         log(f"matvec backend: {backend} (--backend)")
@@ -395,7 +420,8 @@ def headline(eq, steps=20, repeats=5):
            "counts": [run["rows"][:, [0, 2]].tolist() for run in runs],
            "launches_per_step": {k: v / steps
                                  for k, v in first["launches"].items()},
-           "launches": {k: v * repeats for k, v in first["launches"].items()},
+           "launches": {k: sum(run["launches"][k] for run in runs)
+                        for k in first["launches"]},
            "final_err": float(rows[-1, 1])}
     log(f"{steps} steps (fused driver), steps {steps + 1}-{2 * steps} from "
         f"one saved state, {repeats} repeats: median "
@@ -431,7 +457,8 @@ def bench_matvec_scale(device, roof, nx=44, seed=0):
     """The block-DIA operator on the natural-order GridBox ``nx``: the
     card's streaming-copy rate (which becomes ``roof.ceiling``), the f32
     and f64 DIA matvecs, the assembly and the cumsum matvec.  Returns the
-    DIA launches; raises on the card when the DIA kernel did not run."""
+    DIA kernel's launches of each precision; raises on the card when one of
+    them did not run."""
     grid = sc.GridBox(Lx=600.0, Ly=600.0, Lz=800.0, nx=nx, ny=nx, nz=nx)
     kern = MomentumKernel(grid, device)
     E, N = kern.n_elems, kern.n_nodes
@@ -456,10 +483,10 @@ def bench_matvec_scale(device, roof, nx=44, seed=0):
     CT64 = kern.prep(mat.C)
     vals64 = dia.assemble(CT64)
     rng = np.random.default_rng(seed)
-    launches = dia.launches
-    out = {}
+    out, launched = {}, {}
     for dtype, fbytes, iters in ((torch.float32, 4, 500),
                                  (torch.float64, 8, 100)):
+        before = dia.launches
         op = dia.operator(vals64.to(dtype).contiguous())
         u = torch.as_tensor(rng.normal(size=(N, 3)), dtype=dtype,
                             device=device)
@@ -467,12 +494,12 @@ def bench_matvec_scale(device, roof, nx=44, seed=0):
         streamed, effective = dia_bytes(p, N, fbytes)
         name = str(dtype).split(".")[-1]
         out[name] = ms
+        launched[f"dia_matvec_f{fbytes * 8}"] = need_launch(
+            "scale", device, dia.launches - before)
         log(f"[scale] matvec[block-DIA {name}]: {1e3 * ms:.1f} us "
             f"({3 * N / ms / 1e3:.0f} MDOF/s, streamed "
             f"{roof(streamed, ms)}; effective "
             f"{effective / (ms * 1e-3) / 1e9:.1f} GB/s)")
-    launched = {"dia_matvec": need_launch("scale", device,
-                                          dia.launches - launches)}
 
     for dtype in (torch.float32, torch.float64):
         CTd = CT64.to(dtype)
@@ -493,21 +520,25 @@ def bench_matvec_scale(device, roof, nx=44, seed=0):
 # --------------------------------------------------------------------------- #
 # 4. the TM-cyclic configurations (bench.py:build_tm_cyclic, bench_tm_cyclic)
 # --------------------------------------------------------------------------- #
-def build_tm_cyclic(grid_name, fallback, label, device=None):
-    """bench.py's ``build_tm_cyclic`` on ``device``: coupled TM cyclic
-    loading on the 1200-class / interlayer meshes.  bench.py's quirks are
-    kept: the interlayer test is ``"nterlayer" in region`` (case-sensitive:
-    cavern_proxy_1200's "INTERLAYER" runs as single-region KV + DC) and the
-    heat Dirichlet ramp goes on "Top" only.  Returns (eq, heat)."""
-    device = torch.device(device) if device is not None \
-        else sc.default_device()
-    dev = {"device": device}
-    momBC, heatBC = sc.MomentumBC, sc.HeatBC
-    path = find_grid(grid_name, fallback=fallback)
-    grid = sc.GridHandlerGMSH("geom", path, reorder="band")
+def build_tm_cyclic(grid_name, fallback=None, label=None, device=None,
+                    pkg=sc, eq_kw=None, **settings):
+    """bench.py's ``build_tm_cyclic``: coupled TM cyclic loading on the
+    band-ordered mesh ``grid_name`` (``fallback`` first in grids/, as
+    bench.py finds it).  bench.py's quirks are kept: the interlayer test is
+    ``"nterlayer" in region`` (case-sensitive: cavern_proxy_1200's
+    "INTERLAYER" runs as single-region KV + DC, with 10 +- 4 MPa on TOP and
+    Cavern) and the heat Dirichlet ramp goes on "Top" only.  ``settings``
+    go beside bench.py's Krylov settings, ``eq_kw`` to ``LinearMomentum``.
+    Returns (eq, heat)."""
+    dev = on(pkg, device)
+    momBC, heatBC = pkg.MomentumBC, pkg.HeatBC
+    path = pkg.Utils.find_grid(grid_name, fallback=fallback)
+    grid = pkg.GridHandlerGMSH("geom", path, reorder="band")
     regions = grid.get_subdomain_names()
-    log(f"[{label}] mesh: {os.path.basename(os.path.dirname(path))} "
-        f"({grid.n_nodes} nodes, {grid.n_elems} tets, regions={regions})")
+    if label:
+        log(f"[{label}] mesh: {os.path.basename(os.path.dirname(path))} "
+            f"({grid.n_nodes} nodes, {grid.n_elems} tets, "
+            f"regions={regions})")
     has_inter = any("nterlayer" in r for r in regions)
 
     def per_region(salt_val, inter_val, over_val=None):
@@ -523,28 +554,27 @@ def build_tm_cyclic(grid_name, fallback, label, device=None):
     inter = per_region(0.0, 1.0, 0.0)
     over = per_region(0.0, 0.0, 1.0)
     salt = 1.0 - inter - over
-    eq = sc.LinearMomentum(grid, theta=0.5, **dev)
-    eq.set_solver(sc.SolverSettings(method="bicgstab", rtol=1e-12,
-                                    max_it=400, coarse_agg=8))
-    mat = sc.Material(n, **dev)
+    eq = pkg.LinearMomentum(grid, theta=0.5, **dev, **(eq_kw or {}))
+    eq.set_solver(pkg.SolverSettings(**SETTINGS, **settings))
+    mat = pkg.Material(n, **dev)
     mat.set_density(2200.0 * salt + 2900.0 * inter + 2500.0 * over)
-    mat.add_to_elastic(sc.Spring(102e9 * salt + 70e9 * inter + 35e9 * over,
+    mat.add_to_elastic(pkg.Spring(102e9 * salt + 70e9 * inter + 35e9 * over,
                                  0.30 * salt + 0.27 * inter + 0.25 * over))
-    mat.add_to_non_elastic(sc.Viscoelastic(
+    mat.add_to_non_elastic(pkg.Viscoelastic(
         per_region(105e11, 105e13, 105e13), 10e9 * one, 0.32 * one, **dev))
     if has_inter:
         # salt creep masked off the interlayers and the overburden cap,
         # Mohr-Coulomb interlayers
-        mat.add_to_non_elastic(sc.DislocationCreep(
+        mat.add_to_non_elastic(pkg.DislocationCreep(
             1.9e-20 * salt, 51600 * one, 3.0 * one, name="ds_creep", **dev))
-        mat.add_to_non_elastic(sc.MohrCoulombViscoplastic(
+        mat.add_to_non_elastic(pkg.MohrCoulombViscoplastic(
             mu_1=1e-9 * inter, N_1=1.0 * one, cohesion=4.0 * one,
             friction_angle=np.radians(35.0) * one,
             dilation_angle=0.0 * one, sigma_t=1.0 * one, **dev))
     else:
-        mat.add_to_non_elastic(sc.DislocationCreep(
+        mat.add_to_non_elastic(pkg.DislocationCreep(
             1.9e-20 * one, 51600 * one, 3.0 * one, name="ds_creep", **dev))
-    mat.add_to_thermoelastic(sc.Thermoelastic(44e-6 * one, **dev))
+    mat.add_to_thermoelastic(pkg.Thermoelastic(44e-6 * one, **dev))
     mat.set_specific_heat_capacity(850.0 * one)
     mat.set_thermal_conductivity(7.0 * one)
     eq.set_material(mat)
@@ -583,8 +613,8 @@ def build_tm_cyclic(grid_name, fallback, label, device=None):
                     nm, 2, 0.0, 0.0, list(p_sched), list(t_sched), g=0.0))
     eq.set_boundary_conditions(bc)
 
-    heat = sc.HeatDiffusion(grid, **dev)
-    heat.set_solver(sc.SolverSettings(method="cg", rtol=1e-12, max_it=400))
+    heat = pkg.HeatDiffusion(grid, **dev)
+    heat.set_solver(pkg.SolverSettings(method="cg", rtol=1e-12, max_it=400))
     heat.set_material(mat)
     heat.set_initial_T(T0 * np.ones(grid.n_nodes))
     bc_h = heatBC.BcHandler(heat)
@@ -704,51 +734,70 @@ def bench_matvec(eq, roof, seed=0):
 # --------------------------------------------------------------------------- #
 # 6. the coupled TM configuration on cavern600 (bench.py:bench_tm)
 # --------------------------------------------------------------------------- #
-def bench_tm(eq_mech, n_tm=20):
-    """bench.py's second configuration on the benchmark mesh: Spring +
-    Kelvin + dislocation and pressure-solution creep + Thermoelastic, the
-    mechanical loads of ``eq_mech``, a heat Dirichlet ramp on "TOP" (the
-    mesh's name for the face bench.py calls "Top") and a Robin wall on
-    "Cavern".  A step that fails is retried at dt/2, /4, /8 (bench.py's
-    flow); raises when dt/8 fails."""
-    heatBC = sc.HeatBC
-    grid, device = eq_mech.grid, eq_mech.device
-    dev = {"device": device}
-    n = grid.n_elems
+def tm_material(n, device=None, pkg=sc):
+    """bench.py's thermo-mechanical material (bench_tm): Spring +
+    Kelvin-Voigt + dislocation creep + pressure-solution creep +
+    Thermoelastic, cp 850 J/kg/K, k 7 W/m/K."""
     one = np.ones(n)
-    heat = sc.HeatDiffusion(grid, **dev)
-    heat.set_solver(sc.SolverSettings(method="cg", rtol=1e-12, max_it=400))
-    eq = sc.LinearMomentum(grid, theta=0.5, **dev)
-    eq.set_solver(eq_mech.solver)
-    mat = sc.Material(n, **dev)
+    dev = on(pkg, device)
+    mat = pkg.Material(n, **dev)
     mat.set_density(2200.0 * one)
-    mat.add_to_elastic(sc.Spring(102e9 * one, 0.3 * one))
-    mat.add_to_non_elastic(sc.Viscoelastic(105e11 * one, 10e9 * one,
-                                           0.32 * one, **dev))
-    mat.add_to_non_elastic(sc.DislocationCreep(1.9e-20 * one, 51600 * one,
-                                               3.0 * one, name="ds_creep",
-                                               **dev))
-    mat.add_to_non_elastic(sc.PressureSolutionCreep(1e-22 * one, 1e-2 * one,
-                                                    51600 * one,
-                                                    name="ps_creep", **dev))
-    mat.add_to_thermoelastic(sc.Thermoelastic(44e-6 * one, **dev))
+    mat.add_to_elastic(pkg.Spring(102e9 * one, 0.3 * one))
+    mat.add_to_non_elastic(pkg.Viscoelastic(105e11 * one, 10e9 * one,
+                                            0.32 * one, **dev))
+    mat.add_to_non_elastic(pkg.DislocationCreep(
+        1.9e-20 * one, 51600 * one, 3.0 * one, name="ds_creep", **dev))
+    mat.add_to_non_elastic(pkg.PressureSolutionCreep(
+        1e-22 * one, 1e-2 * one, 51600 * one, name="ps_creep", **dev))
+    mat.add_to_thermoelastic(pkg.Thermoelastic(44e-6 * one, **dev))
     mat.set_specific_heat_capacity(850.0 * one)
     mat.set_thermal_conductivity(7.0 * one)
+    return mat
+
+
+def tm_equations(grid, wall="Cavern", device=None, pkg=sc, solver=None,
+                 heat_precision="mixed", eq_kw=None, **settings):
+    """bench.py's thermo-mechanical configuration on ``grid``: the
+    benchmark's mechanical loads (:func:`bench_bcs`), :func:`tm_material`,
+    initial T 298 K, a Dirichlet ramp 298 -> 293 K over 12 h on TOP (the
+    mesh's name for the face bench.py calls "Top"; "Top" where the mesh
+    has no TOP) and a Robin wall (h = 5 W/m2/K, 298 -> 283 K over 24 h) on
+    ``wall``.  The momentum solver is ``solver``, else :data:`SETTINGS`
+    with ``settings``.  Returns (momentum equation, heat equation)."""
+    dev = on(pkg, device)
+    eq = pkg.LinearMomentum(grid, theta=0.5, **dev, **(eq_kw or {}))
+    eq.set_solver(solver or pkg.SolverSettings(**SETTINGS, **settings))
+    mat = tm_material(eq.n_elems, device, pkg)
     eq.set_material(mat)
     eq.build_body_force([0.0, 0.0, 0.0])
-    eq.set_boundary_conditions(eq_mech.bc)
+    bench_bcs(eq, pkg)
+    heat = pkg.HeatDiffusion(grid, **dev)
+    heat.set_solver(pkg.SolverSettings(method="cg", rtol=1e-12, max_it=400,
+                                       precision=heat_precision))
     heat.set_material(mat)
     heat.set_initial_T(298.0 * np.ones(grid.n_nodes))
+    heatBC = pkg.HeatBC
     bc_h = heatBC.BcHandler(heat)
     names = grid.get_boundary_names()
     top = "TOP" if "TOP" in names else "Top"
     if top in names:
         bc_h.add_boundary_condition(heatBC.DirichletBC(
             top, [298., 293., 293.], [0.0, 12 * DT, 1e12]))
-    if "Cavern" in names:
+    if wall in names:
         bc_h.add_boundary_condition(heatBC.RobinBC(
-            "Cavern", [298., 283., 283.], 5.0, [0.0, 24 * DT, 1e12]))
+            wall, [298., 283., 283.], 5.0, [0.0, 24 * DT, 1e12]))
     heat.set_boundary_conditions(bc_h)
+    return eq, heat
+
+
+def bench_tm(eq_mech, n_tm=20):
+    """bench.py's second configuration on the benchmark mesh
+    (:func:`tm_equations` with ``eq_mech``'s solver; no Desai), driven by
+    the fused TM driver.  A step that fails is retried at dt/2, /4, /8
+    (bench.py's flow); raises when dt/8 fails."""
+    device = eq_mech.device
+    eq, heat = tm_equations(eq_mech.grid, "Cavern", device,
+                            solver=eq_mech.solver)
     init_tm(eq, heat)
 
     def run_tm(ts_list, dts_list):
@@ -853,9 +902,6 @@ def parse_args(argv=None):
     ap.add_argument("--steps", type=int, default=20,
                     help="steps of the warm-up chunk and of the timed window, "
                     "and of the TM and host-sync sections (default 20)")
-    ap.add_argument("--budget", type=float, default=540.0,
-                    help="seconds; a later section starts only if bench.py's "
-                    "gate for it is left (default 540)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the matvec sections' random vectors")
     ap.add_argument("--lag-tangent", action="store_true")
@@ -888,19 +934,6 @@ def main(argv=None):
                "host_load": [os.getloadavg()[0]]}
     eq = None
 
-    def remaining():
-        return args.budget - (time.perf_counter() - t_start)
-
-    def section(name):
-        if name != "headline" and remaining() <= GATES[name]:
-            log(f"skipping {name} (budget: {remaining():.0f}s left, needs "
-                f"{GATES[name]}s)")
-            summary["sections"][name] = "skipped (budget)"
-            return False
-        log(f"[t+{time.perf_counter() - t_start:.0f}s] section: {name} "
-            f"(remaining {remaining():.0f}s)")
-        return True
-
     def count(result, name):
         summary["sections"][name] = result
         for k, v in result.get("launches", {}).items():
@@ -917,8 +950,7 @@ def main(argv=None):
         return eq
 
     for name in want:
-        if not section(name):
-            continue
+        log(f"[t+{time.perf_counter() - t_start:.0f}s] section: {name}")
         if name == "headline":
             eq = bench_eq()
             log(f"dofs: {3 * eq.n_nodes}")
@@ -942,14 +974,10 @@ def main(argv=None):
         elif name == "tm_cyclic":
             runs = {}
             for grid_name, fb, label, key in TM_CYCLIC:
-                if remaining() <= GATES[name]:
-                    log(f"skipping {label} (budget)")
-                    runs[label] = {"skipped": "budget"}
-                    continue
                 log(f"[t+{time.perf_counter() - t_start:.0f}s] {label}")
                 runs[label] = bench_tm_cyclic(grid_name, fb, label, key,
                                               device)
-            count({"launches": {k: sum(r.get("launches", {}).get(k, 0)
+            count({"launches": {k: sum(r["launches"].get(k, 0)
                                        for r in runs.values())
                                 for k in ("band_matvec", "dia_matvec")},
                    "configs": runs}, name)

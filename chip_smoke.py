@@ -2817,14 +2817,15 @@ def bench_phase(card):
         raise AssertionError(f"bench_torch.py sections not run: {missing}")
     h = ran["headline"]
     band = h["launches"].get("band_matvec", 0)
-    dia = ran["scale"]["launches"].get("dia_matvec", 0)
+    dia = ran["scale"]["launches"].get("dia_matvec_f32", 0)
+    dia64 = ran["scale"]["launches"].get("dia_matvec_f64", 0)
     if h["repeats"] < 5 or any(c != h["counts"][0] for c in h["counts"]):
         raise AssertionError(f"bench_torch.py headline: {h['repeats']} "
                              f"repeats, counts {h['counts']}")
-    if band <= 0 or dia <= 0:
+    if band <= 0 or dia <= 0 or dia64 <= 0:
         raise AssertionError(f"bench_torch.py: band launches {band} in the "
-                             f"headline, DIA launches {dia} in the scale "
-                             f"section")
+                             f"headline, DIA launches {dia} f32 and {dia64} "
+                             f"f64 in the scale section")
     say("bench", f"bench_torch.py --sections {' '.join(BENCH_SECTIONS)} "
                  f"exit 0 in {secs:.1f} s: {line}; headline median "
                  f"{1e3 * h['median_s']:.1f} ms/step (min "
@@ -2835,8 +2836,9 @@ def bench_phase(card):
                  f"{h['krylov_per_step']:.1f} Krylov it/step, "
                  f"{h['launches_per_step'].get('band_matvec', 0):.1f} band "
                  f"launches/step, {h['retries']} f64 retries; band launches "
-                 f"{summary['launches'].get('band_matvec', 0)}, DIA launches "
-                 f"{summary['launches'].get('dia_matvec', 0)} over the run; "
+                 f"{summary['launches'].get('band_matvec', 0)} over the run "
+                 f"({band} in the headline's {h['repeats']} windows), DIA "
+                 f"launches f32 {dia} / f64 {dia64} in the scale section; "
                  f"{card}")
     return {BAND["name"]: (band, h["launches_per_step"].get("band_matvec",
                                                             0.0)),

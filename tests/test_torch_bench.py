@@ -1,9 +1,10 @@
 """bench_torch.py, the port's counterpart of bench.py, on the CPU (one torch
-thread): what it imports, its set-ups against bench.py's (mechanics) and
-against ``torch_port_configs.tm_cyclic`` (TM-cyclic) array for array, its
-benchmark equation against tests/golden/torch_port_cavern600.npz, its
-headline's output contract in repeats from one saved state, and the byte
-counts of its rooflines against bench.py's formulas.
+thread): what it imports, its set-ups against bench.py's (mechanics, with
+and without bench.py's solver flags, and TM-cyclic) array for array, its
+command-line flags, its benchmark equation against
+tests/golden/torch_port_cavern600.npz, its headline's output contract in
+repeats from one saved state, and the byte counts of its rooflines against
+bench.py's formulas.
 """
 import dataclasses
 import json
@@ -102,24 +103,85 @@ def test_build_holds_the_cavern600_golden(one_torch_thread):
         assert err <= 1e-6, (name, err)
 
 
+def assert_same_setup(got, ref):
+    """Two set-ups' :func:`torch_port_configs.setup_arrays` equal array for
+    array, but for one package's caches and device attributes."""
+    only = set(got) ^ set(ref)
+    assert all(private(k) for k in only), sorted(only)
+    common = sorted((set(got) & set(ref)) - CACHES)
+    for k in common:
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+    return common
+
+
+@pytest.mark.parametrize("flag", ["lag_tangent", "adaptive_rtol"])
+def test_build_flags_equal_bench_py_env(flag, monkeypatch):
+    """``--lag-tangent`` and ``--adaptive-rtol`` set up what bench.py's
+    BENCH_LAG_TANGENT=1 and BENCH_ADAPTIVE_RTOL=1 do."""
+    import bench
+    monkeypatch.setenv(f"BENCH_{flag.upper()}", "1")
+    ref = cfg.setup_arrays(bench.build())
+    got = cfg.setup_arrays(bench_torch.build(device="cpu", **{flag: True}))
+    assert bool(ref[f"solver.{flag}"]) and bool(got[f"solver.{flag}"])
+    assert_same_setup(got, ref)
+
+
+@pytest.mark.parametrize("backend", ["band", "blockell", "dia"])
+def test_backend_flag(backend):
+    """``--backend`` enables the named stiffness backend, and raises where
+    it cannot be enabled: the band-ordered cavern600 numbering is not
+    offset-structured, so block-DIA refuses it."""
+    if backend == "dia":
+        with pytest.raises(ValueError, match="offset"):
+            bench_torch.build(device="cpu", backend=backend)
+        with pytest.raises(ValueError, match="offset"):
+            bench_torch.main(["--device", "cpu", "--sections", "matvec",
+                              "--backend", backend])
+        return
+    eq = bench_torch.build(device="cpu", backend=backend)
+    assert getattr(eq.kernel, backend) is not None
+
+
+def test_main_passes_the_solver_flags(monkeypatch):
+    """``main`` builds the benchmark equation with the command line's
+    flags (the section itself is replaced: only the wiring is checked)."""
+    built = []
+
+    def spy(*a, **kw):
+        built.append(real(*a, **kw))
+        return built[-1]
+
+    real = bench_torch.build
+    monkeypatch.setattr(bench_torch, "build", spy)
+    monkeypatch.setattr(bench_torch, "elastic_start", lambda eq: 0.0)
+    monkeypatch.setattr(bench_torch, "bench_hostsync",
+                        lambda eq, n_steps: {"launches": {}})
+    summary = bench_torch.main(["--device", "cpu", "--sections", "hostsync",
+                                "--lag-tangent", "--adaptive-rtol",
+                                "--backend", "blockell"])
+    (eq,) = built
+    assert eq.solver.lag_tangent and eq.solver.adaptive_rtol
+    assert eq.kernel.blockell is not None
+    assert summary["sections"] == {"hostsync": {"launches": {}}}
+
+
 @pytest.mark.parametrize("config", bench_torch.TM_CYCLIC,
                          ids=[c[2] for c in bench_torch.TM_CYCLIC])
 def test_tm_cyclic_builders_equal_the_twin(config):
-    """Each TM-cyclic builder of bench_torch equals
-    ``torch_port_configs.tm_cyclic`` (bench.py's ``build_tm_cyclic`` line
-    for line, checked against bench.py by tests/test_torch_tm_cyclic*.py)
-    with the same "auto" settings, array for array, built without
-    solving."""
+    """Each TM-cyclic builder of bench_torch sets up what bench.py's
+    ``build_tm_cyclic`` (the JAX twin) does: the material, both boundary
+    handlers' tables, the solver settings and the temperatures, array for
+    array, built without solving."""
+    import bench
     grid_name, fallback, label, _ = config
     got = cfg.setup_arrays(*bench_torch.build_tm_cyclic(
         grid_name, fallback, label, device="cpu"))
-    ref = cfg.setup_arrays(*cfg.tm_cyclic(
-        st, grid_name, device="cpu", precond="auto", fp32_phase="auto",
-        fallback=fallback))
-    assert sorted(got) == sorted(ref)
-    assert any(k.startswith("heat_bc.") for k in ref)
-    for k in ref:
-        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+    ref = cfg.setup_arrays(*bench.build_tm_cyclic(grid_name, fallback,
+                                                  label))
+    common = assert_same_setup(got, ref)
+    for table in ("heat_bc.", "bc._neumann_meta.", "mat.elems_th.",
+                  "heat_T"):
+        assert any(k.startswith(table) for k in common), table
 
 
 def test_headline_prints_one_json_line(capsys, one_torch_thread):
@@ -166,6 +228,6 @@ def test_scale_section_runs_on_a_small_box():
     twin): every timing finite, the streaming ceiling set."""
     roof = bench_torch.Roofline(CPU)
     out = bench_torch.bench_matvec_scale(CPU, roof, nx=4)
-    assert out["launches"] == {"dia_matvec": 0}
+    assert out["launches"] == {"dia_matvec_f32": 0, "dia_matvec_f64": 0}
     assert all(np.isfinite(v) and v > 0 for v in out["ms"].values())
     assert roof.ceiling > 0

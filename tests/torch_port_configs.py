@@ -9,7 +9,10 @@ JAX package takes no such argument.  The material and loads are the cavern
 benchmark's (bench.py:build): Spring + Viscoelastic + DislocationCreep +
 ViscoplasticDesai, roller supports on the three lower faces and a 24 h
 sinusoidal pressure on the loaded faces.  The thermo-mechanical set-ups
-(``wire_tm``) take bench.py's second configuration (bench_tm).  The yearly
+(``wire_tm``) take bench.py's second configuration (bench_tm), the
+TM-cyclic ones (``tm_cyclic``) its ``build_tm_cyclic``; these benchmark
+set-ups are bench_torch.py's functions, held against bench.py's own by
+tests/test_torch_bench.py.  The yearly
 production run (``yearly_*``) is examples/mechanics/nobian_yearly/main.py
 ``--full``; the calibration twins (``creep_model``, ``triaxial_twin``) are
 those of examples/mechanics/MaterialCalibration.
@@ -17,78 +20,38 @@ those of examples/mechanics/MaterialCalibration.
 import contextlib
 import dataclasses
 import os
+import sys
 
 import numpy as np
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+# bench_torch.py owns the benchmark's set-ups; its functions take the
+# package module and set either package up
+import bench_torch  # noqa: E402
+from bench_torch import SETTINGS, on  # noqa: E402,F401
+
 MPa = 1e6
 HOUR = 3600.0
-SETTINGS = dict(method="bicgstab", rtol=1e-12, max_it=400, coarse_agg=8)
-FIXED = [("WEST", 0), ("SOUTH", 1), ("BOTTOM", 2),
-         ("West", 0), ("South", 1), ("Bottom", 2)]
-LOADED = ["EAST", "NORTH", "TOP", "East", "North", "Top",
-          "Cavern", "CAVERN", "Wall", "WALL"]
-
-
-def on(pkg, device):
-    """``device`` as keyword arguments of the port's constructors; none for
-    the JAX package."""
-    if device is None or pkg.__name__ != "safeincave_torch":
-        return {}
-    return {"device": device}
 
 
 def bench_material(pkg, n, device=None):
-    one = np.ones(n)
-    dev = on(pkg, device)
-    mat = pkg.Material(n, **dev)
-    mat.set_density(2200.0 * one)
-    mat.add_to_elastic(pkg.Spring(102e9 * one, 0.3 * one))
-    mat.add_to_non_elastic(pkg.Viscoelastic(105e11 * one, 10e9 * one,
-                                            0.32 * one, **dev))
-    mat.add_to_non_elastic(pkg.DislocationCreep(1.9e-20 * one, 51600 * one,
-                                                3.0 * one, **dev))
-    mat.add_to_non_elastic(pkg.ViscoplasticDesai(
-        mu_1=5.3665857009859815e-11 * one, N_1=3.1 * one,
-        a_1=1.965018496922832e-05 * one, eta=0.8275682807874163 * one,
-        n=3.0 * one, beta_1=0.0048 * one, beta=0.995 * one, m=-0.5 * one,
-        gamma=0.095 * one, sigma_t=5.0 * one, alpha_0=0.0022 * one, **dev))
-    return mat
+    return bench_torch.bench_material(n, device, pkg)
 
 
 def wire_bench(pkg, grid, precond="2level", fp32_phase=False, device=None,
                **eq_kw):
     """The cavern benchmark's equation on ``grid`` (fp32 phase off unless
     asked for)."""
-    eq = pkg.LinearMomentum(grid, theta=0.5, **on(pkg, device), **eq_kw)
-    eq.set_solver(pkg.SolverSettings(precond=precond, fp32_phase=fp32_phase,
-                                     **SETTINGS))
-    n = eq.n_elems
-    eq.set_material(bench_material(pkg, n, device))
-    eq.set_T0(298.0 * np.ones(n))
-    eq.set_T(298.0 * np.ones(n))
-    eq.build_body_force([0.0, 0.0, 0.0])
-    bench_bcs(pkg, eq)
-    return eq
+    return bench_torch.bench_equation(grid, device, pkg, eq_kw,
+                                      precond=precond, fp32_phase=fp32_phase)
 
 
 def bench_bcs(pkg, eq):
     """The cavern benchmark's supports and 24 h sinusoidal pressure on
     ``eq``'s grid."""
-    momBC = pkg.MomentumBC
-    names = eq.grid.get_boundary_names()
-    bc = momBC.BcHandler(eq)
-    tv = [0.0, 1e12]
-    for nm, comp in FIXED:
-        if nm in names:
-            bc.add_boundary_condition(momBC.DirichletBC(nm, comp, [0., 0.],
-                                                        tv))
-    t_sched = np.arange(0.0, 400 * HOUR, HOUR)
-    p_sched = 10 * MPa + 4 * MPa * np.sin(2 * np.pi * t_sched / (24 * HOUR))
-    for nm in LOADED:
-        if nm in names:
-            bc.add_boundary_condition(momBC.NeumannBC(
-                nm, 2, 0.0, 0.0, list(p_sched), list(t_sched), g=0.0))
-    eq.set_boundary_conditions(bc)
+    bench_torch.bench_bcs(eq, pkg)
 
 
 def cavern600_grid(pkg):
@@ -114,54 +77,19 @@ def wire_flagged(pkg, grid, flags, precond="2level", device=None, **eq_kw):
 
 
 def tm_material(pkg, n, device=None):
-    """bench.py's thermo-mechanical material (bench_tm): Spring +
-    Kelvin-Voigt + dislocation creep + pressure-solution creep +
-    Thermoelastic, cp 850 J/kg/K, k 7 W/m/K."""
-    one = np.ones(n)
-    dev = on(pkg, device)
-    mat = pkg.Material(n, **dev)
-    mat.set_density(2200.0 * one)
-    mat.add_to_elastic(pkg.Spring(102e9 * one, 0.3 * one))
-    mat.add_to_non_elastic(pkg.Viscoelastic(105e11 * one, 10e9 * one,
-                                            0.32 * one, **dev))
-    mat.add_to_non_elastic(pkg.DislocationCreep(
-        1.9e-20 * one, 51600 * one, 3.0 * one, name="ds_creep", **dev))
-    mat.add_to_non_elastic(pkg.PressureSolutionCreep(
-        1e-22 * one, 1e-2 * one, 51600 * one, name="ps_creep", **dev))
-    mat.add_to_thermoelastic(pkg.Thermoelastic(44e-6 * one, **dev))
-    mat.set_specific_heat_capacity(850.0 * one)
-    mat.set_thermal_conductivity(7.0 * one)
-    return mat
+    """bench.py's thermo-mechanical material (bench_tm)."""
+    return bench_torch.tm_material(n, device, pkg)
 
 
 def wire_tm(pkg, grid, wall, precond="2level", fp32_phase=False,
             device=None, heat_precision="mixed", **eq_kw):
-    """bench.py's thermo-mechanical configuration on ``grid``: the
-    benchmark's mechanical loads, :func:`tm_material`, initial T 298 K, a
-    Dirichlet ramp 298 -> 293 K over 12 h on TOP and a Robin wall (h = 5
-    W/m2/K, 298 -> 283 K over 24 h) on the boundary ``wall``.  Returns
-    (momentum equation, heat equation)."""
-    dev = on(pkg, device)
-    eq = pkg.LinearMomentum(grid, theta=0.5, **dev, **eq_kw)
-    eq.set_solver(pkg.SolverSettings(precond=precond, fp32_phase=fp32_phase,
-                                     **SETTINGS))
-    mat = tm_material(pkg, eq.n_elems, device)
-    eq.set_material(mat)
-    eq.build_body_force([0.0, 0.0, 0.0])
-    bench_bcs(pkg, eq)
-    heat = pkg.HeatDiffusion(grid, **dev)
-    heat.set_solver(pkg.SolverSettings(method="cg", rtol=1e-12, max_it=400,
-                                       precision=heat_precision))
-    heat.set_material(mat)
-    heat.set_initial_T(298.0 * np.ones(grid.n_nodes))
-    heatBC = pkg.HeatBC
-    bc_h = heatBC.BcHandler(heat)
-    bc_h.add_boundary_condition(heatBC.DirichletBC(
-        "TOP", [298., 293., 293.], [0.0, 12 * HOUR, 1e12]))
-    bc_h.add_boundary_condition(heatBC.RobinBC(
-        wall, [298., 283., 283.], 5.0, [0.0, 24 * HOUR, 1e12]))
-    heat.set_boundary_conditions(bc_h)
-    return eq, heat
+    """bench.py's thermo-mechanical configuration on ``grid`` with the Robin
+    wall on ``wall`` (:func:`bench_torch.tm_equations`).  Returns (momentum
+    equation, heat equation)."""
+    return bench_torch.tm_equations(grid, wall, device, pkg,
+                                    heat_precision=heat_precision,
+                                    eq_kw=eq_kw, precond=precond,
+                                    fp32_phase=fp32_phase)
 
 
 def tm_cube(pkg, device=None, extra=None, nx=3):
@@ -505,103 +433,13 @@ def band_grid(pkg, grid_name, fallback=None):
 
 def tm_cyclic(pkg, grid_name, device=None, precond="2level",
               fp32_phase=False, auto_backend=True, fallback=None):
-    """bench.py's ``build_tm_cyclic`` line for line, on the band-ordered
-    mesh ``grid_name`` (``fallback`` first in grids/, as bench.py finds
-    it).  Its quirks are kept: the interlayer test is ``"nterlayer" in
-    region`` (so cavern_proxy_1200's "INTERLAYER" runs as single-region KV
-    + DC, with 10 +- 4 MPa on TOP and Cavern), and the heat Dirichlet ramp
-    goes on "Top" only.  Returns (momentum equation, heat equation)."""
-    dev = on(pkg, device)
-    grid = band_grid(pkg, grid_name, fallback)
-    regions = grid.get_subdomain_names()
-    has_inter = any("nterlayer" in r for r in regions)
-
-    def per_region(salt_val, inter_val, over_val=None):
-        if over_val is None:
-            over_val = salt_val
-        return np.asarray(grid.get_parameter(
-            {r: (inter_val if "nterlayer" in r
-                 else over_val if "verburden" in r else salt_val)
-             for r in regions}))
-
-    n = grid.n_elems
-    one = np.ones(n)
-    inter = per_region(0.0, 1.0, 0.0)
-    over = per_region(0.0, 0.0, 1.0)
-    salt = 1.0 - inter - over
-    eq = pkg.LinearMomentum(grid, theta=0.5, auto_backend=auto_backend,
-                            **dev)
-    eq.set_solver(pkg.SolverSettings(method="bicgstab", rtol=1e-12,
-                                     max_it=400, coarse_agg=8,
-                                     precond=precond, fp32_phase=fp32_phase))
-    mat = pkg.Material(n, **dev)
-    mat.set_density(2200.0 * salt + 2900.0 * inter + 2500.0 * over)
-    mat.add_to_elastic(pkg.Spring(102e9 * salt + 70e9 * inter + 35e9 * over,
-                                  0.30 * salt + 0.27 * inter + 0.25 * over))
-    mat.add_to_non_elastic(pkg.Viscoelastic(
-        per_region(105e11, 105e13, 105e13), 10e9 * one, 0.32 * one, **dev))
-    if has_inter:
-        mat.add_to_non_elastic(pkg.DislocationCreep(
-            1.9e-20 * salt, 51600 * one, 3.0 * one, name="ds_creep", **dev))
-        mat.add_to_non_elastic(pkg.MohrCoulombViscoplastic(
-            mu_1=1e-9 * inter, N_1=1.0 * one, cohesion=4.0 * one,
-            friction_angle=np.radians(35.0) * one,
-            dilation_angle=0.0 * one, sigma_t=1.0 * one, **dev))
-    else:
-        mat.add_to_non_elastic(pkg.DislocationCreep(
-            1.9e-20 * one, 51600 * one, 3.0 * one, name="ds_creep", **dev))
-    mat.add_to_thermoelastic(pkg.Thermoelastic(44e-6 * one, **dev))
-    mat.set_specific_heat_capacity(850.0 * one)
-    mat.set_thermal_conductivity(7.0 * one)
-    eq.set_material(mat)
-    T0 = 298.0
-    eq.set_T0(T0 * one)
-    eq.set_T(T0 * one)
-    eq.build_body_force([0.0, 0.0, 0.0])
-
-    names = grid.get_boundary_names()
-    momBC = pkg.MomentumBC
-    bc = momBC.BcHandler(eq)
-    tv = [0.0, 1e12]
-    for nm, comp in (("West", 0), ("South", 1), ("Bottom", 2),
-                     ("WEST", 0), ("SOUTH", 1), ("BOTTOM", 2)):
-        if nm in names:
-            bc.add_boundary_condition(momBC.DirichletBC(nm, comp, [0., 0.],
-                                                        tv))
-    t_sched = np.arange(0.0, 400 * HOUR, HOUR)
-    if has_inter:
-        p_sched = 8 * MPa + 2 * MPa * np.sin(2 * np.pi * t_sched
-                                             / (24 * HOUR))
-        for nm in ("Top", "TOP"):
-            if nm in names:
-                bc.add_boundary_condition(momBC.NeumannBC(
-                    nm, 2, 0.0, 0.0, [15 * MPa, 15 * MPa], tv, g=0.0))
-        if "Cavern" in names:
-            bc.add_boundary_condition(momBC.NeumannBC(
-                "Cavern", 2, 0.0, 0.0, list(p_sched), list(t_sched), g=0.0))
-    else:
-        p_sched = 10 * MPa + 4 * MPa * np.sin(2 * np.pi * t_sched
-                                              / (24 * HOUR))
-        for nm in ("Top", "TOP", "Cavern"):
-            if nm in names:
-                bc.add_boundary_condition(momBC.NeumannBC(
-                    nm, 2, 0.0, 0.0, list(p_sched), list(t_sched), g=0.0))
-    eq.set_boundary_conditions(bc)
-
-    heat = pkg.HeatDiffusion(grid, **dev)
-    heat.set_solver(pkg.SolverSettings(method="cg", rtol=1e-12, max_it=400))
-    heat.set_material(mat)
-    heat.set_initial_T(T0 * np.ones(grid.n_nodes))
-    heatBC = pkg.HeatBC
-    bc_h = heatBC.BcHandler(heat)
-    if "Top" in names:
-        bc_h.add_boundary_condition(heatBC.DirichletBC(
-            "Top", [T0, 293., 293.], [0.0, 12 * HOUR, 1e12]))
-    if "Cavern" in names:
-        bc_h.add_boundary_condition(heatBC.RobinBC(
-            "Cavern", [T0, 283., 283.], 5.0, [0.0, 24 * HOUR, 1e12]))
-    heat.set_boundary_conditions(bc_h)
-    return eq, heat
+    """bench.py's ``build_tm_cyclic`` (:func:`bench_torch.build_tm_cyclic`,
+    its quirks kept) on the band-ordered mesh ``grid_name``.  Returns
+    (momentum equation, heat equation)."""
+    return bench_torch.build_tm_cyclic(
+        grid_name, fallback, device=device, pkg=pkg,
+        eq_kw={"auto_backend": auto_backend}, precond=precond,
+        fp32_phase=fp32_phase)
 
 
 def tm_cyclic_path(pkg, path, **kw):
@@ -915,7 +753,6 @@ def run_sharding_steps(eq, n_steps=2, dt=HOUR):
 
 
 # -- the examples tree (examples/ and its twins in safeincave_torch/examples) #
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXAMPLE_TREES = {"safeincave_tpu": os.path.join(ROOT, "examples"),
                  "safeincave_torch": os.path.join(ROOT, "safeincave_torch",
                                                   "examples")}
