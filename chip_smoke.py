@@ -290,6 +290,30 @@ Phases, one line each; any failure raises and the exit code is non-zero:
              imports JAX, which the card's machine lacks); any failure or
              skip, or no test run, fails the phase.  Phases 19 and 20 run
              after phase 18, before phase 16.
+21. conformance - the port against the original SafeInCave stack and the
+             JAX package's remaining snapshots, through the port alone
+             (``torch_port_configs.oracle_cube``, ``cavern_box`` and
+             ``interlayer_tm``; no JAX, nothing of
+             tests/golden_configs.py): the oracle cube of
+             tests/test_reference_oracle.py (elastic response and one
+             step; tests/files/expected_values_equations/
+             expected_values.json on sorted magnitudes, u 5e-7, eps_tot
+             5e-6, alpha 2e-6, u_1 more than 1.0 from u_0, and
+             tests/golden/torch_port_oracle_cube.npz entry for entry at
+             1e-8 max|ref| with the same iteration count), and
+             tests/golden/fields.npz's ``cavern_*`` (three steps of
+             golden_configs.py's ``run_mechanics`` loop) and ``inter_*``
+             (three coupled steps) at tests/test_golden_fields.py's
+             1e-8.  Each case runs pinned to the settings the references
+             were made with (2level, the cumsum operator, no f32 sweep;
+             no hand kernel may launch),
+             gated at those tolerances, then with the CUDA "auto" choices
+             (dense preconditioner, the f32 sweep, block-DIA where the
+             numbering allows), whose distances, seconds and kernel
+             launches are printed and not gated; the fields of an "auto"
+             run more than 1e-6 of max|ref| from their reference are
+             listed.  Last, the Python blocks of docs/MIGRATION_TORCH.md
+             run once with ``device="cuda"``.  Runs after phase 20.
 
 Phase 9 runs its case twice, with the f32 sweep as "auto" selects it and
 with ``fp32_phase=False``, and prints both lines.
@@ -335,7 +359,7 @@ runs phase 3 alone on the ``safeincave_torch`` package of another checkout
 the kernels in turns within one call; it prints the kernel JSON and the
 card, and no ``ok`` line.
 
-    python3 chip_smoke.py --phase tm|tm_box|lag|yearly|order|point|examples|tm_cyclic|bench|gpu_tests|halo
+    python3 chip_smoke.py --phase tm|tm_box|lag|yearly|order|point|examples|tm_cyclic|bench|gpu_tests|conformance|halo
 
 builds the kernels and runs that phase alone (no ``ok`` line).
 """
@@ -2866,6 +2890,123 @@ def gpu_tests_phase():
                      f"(exit 0, {time.perf_counter() - t0:.1f} s)")
 
 
+# phase 21: tests/test_golden_fields.py's tolerance of the snapshots, and
+# the distance of an "auto" run that goes into ROADMAP.md's queue 2 #5
+FIELDS_RTOL = 1e-8
+AUTO_NOTE = 1e-6
+ORACLE_FIELDS = ("u_elastic", "eps_elastic", "alpha_elastic", "u_step",
+                 "eps_step", "alpha_step")
+CONFORMANCE = ("oracle_cube", "cavern_box", "interlayer_tm")
+
+
+def within_snapshot(got, want):
+    """tests/test_golden_fields.py's test: |got - want| <= FIELDS_RTOL
+    (|want| + max|want|) everywhere."""
+    return bool((np.abs(got - want) <= FIELDS_RTOL * (
+        np.abs(want) + np.abs(want).max())).all())
+
+
+def conformance_case(st, cfg, dev, case, pin, refs):
+    """One case of phase 21 on the card: ({field: distance over
+    max|ref|}, whether it meets the CPU tests' criteria, a note on its
+    steps)."""
+    if case == "oracle_cube":
+        oracle, golden = refs["oracle"], refs["oracle_cube"]
+        run = cfg.oracle_run(st, dev, pin)
+        dists = {k: cfg.oracle_distance(run, oracle, k)
+                 for k, _, _ in cfg.ORACLE_CHECKS}
+        dists.update({f"jax.{k}": rel_err(run[k], golden[k])
+                      for k in ORACLE_FIELDS})
+        off_u0 = cfg.sorted_rel(run["u_step"], oracle["u_0"])
+        ite, err = int(run["iterations"]), float(run["error"])
+        ok = (err < 1e-9 and off_u0 > 1.0
+              and ite == int(golden["iterations"])
+              and all(dists[k] < tol for k, _, tol in cfg.ORACLE_CHECKS)
+              and all(dists[f"jax.{k}"] <= FIELDS_RTOL
+                      for k in ORACLE_FIELDS))
+        return dists, ok, (f"step: {ite} iterations, error {err:.3e}, u_1 "
+                           f"{off_u0:.3f} from u_0 (sorted)")
+    snap = refs["fields"]
+    if case == "cavern_box":
+        u, sig, rows = cfg.run_sharding_steps(cfg.cavern_box(st, dev, pin),
+                                              n_steps=3)
+        got, tol = {"cavern_u": u, "cavern_sig": sig}, 1e-8
+    else:
+        eq, heat = cfg.interlayer_tm(st, dev, pin)
+        rows = cfg.run_tm_steps(eq, heat)
+        got = {"inter_u": cfg.as_np(eq.u), "inter_sig": cfg.as_np(eq.sig_v),
+               "inter_T": cfg.as_np(heat.T)}
+        tol = 1e-6
+    ok = bool((rows[:, 1] <= tol).all()) and all(
+        within_snapshot(v, snap[k]) for k, v in got.items())
+    return ({k: rel_err(v, snap[k]) for k, v in got.items()}, ok,
+            "fixed-point iterations " + ", ".join(
+                f"{int(i)} (error {e:.2e})" for i, e in rows[:, :2]))
+
+
+def conformance_phase(st, cfg, dev, card):
+    """Phase 21: the port against the original SafeInCave stack's oracle
+    and tests/golden/fields.npz's cavern box and interlayer TM snapshots,
+    each case pinned to the references' settings (2level, cumsum, no f32
+    sweep; gated at the CPU tests' tolerances) and then with the CUDA
+    "auto" choices (reported); then the Python blocks of
+    docs/MIGRATION_TORCH.md on the card.  Returns {kernel: launches} over
+    the "auto" runs."""
+    import torch
+    with open(cfg.ORACLE) as f:
+        refs = {"oracle": json.load(f)}
+    with np.load(GOLDEN.format("oracle_cube")) as z:
+        refs["oracle_cube"] = {k: z[k] for k in z.files}
+    with np.load(cfg.FIELDS_GOLDEN) as z:
+        refs["fields"] = {k: z[k] for k in z.files}
+    launched = {BAND["name"]: 0, DIA["name"]: 0}
+    auto_far = []
+    t_phase = time.perf_counter()
+    for case in CONFORMANCE:
+        for pin in (True, False):
+            t0 = time.perf_counter()
+            with kernel_instances(st) as made:
+                dists, ok, steps = conformance_case(st, cfg, dev, case, pin,
+                                                    refs)
+                torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            n = {BAND["name"]: sum(b.launches for b in made["band"]),
+                 DIA["name"]: sum(d.launches for d in made["dia"])}
+            say("conformance", f"{case} {'pinned' if pin else 'auto'}: "
+                + ", ".join(f"{k} {v:.3e}" for k, v in dists.items())
+                + (" (of max|ref|; the oracle's own keys on sorted "
+                   "magnitudes)" if case == "oracle_cube" else
+                   " (of max|ref|)")
+                + f"; {steps}; launches band {n[BAND['name']]}, DIA "
+                f"{n[DIA['name']]}; {secs:.2f} s; {card}")
+            if pin:
+                if any(n.values()):
+                    raise AssertionError(f"conformance {case} pinned: a "
+                                         f"hand kernel launched: {n}")
+                if not ok:
+                    raise AssertionError(f"conformance {case} pinned: "
+                                         f"outside the CPU tests' criteria")
+                continue
+            for k in launched:
+                launched[k] += n[k]
+            # the original stack's own distance is ~2e-7: only the fields
+            # held at 1e-8 enter the note
+            auto_far += [f"{case} {k} {v:.3e}" for k, v in dists.items()
+                         if v > AUTO_NOTE and (case != "oracle_cube"
+                                               or k.startswith("jax."))]
+    say("conformance", f"auto distances above {AUTO_NOTE:g} of max|ref|: "
+                       + (", ".join(auto_far) or "none"))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        n_blocks = len(cfg.migration_blocks())
+        cfg.run_migration_blocks("cuda", tmp)
+    say("conformance", f"docs/MIGRATION_TORCH.md: {n_blocks} Python blocks "
+                       f"ran with device=\"cuda\" in "
+                       f"{time.perf_counter() - t0:.2f} s; the phase took "
+                       f"{time.perf_counter() - t_phase:.2f} s")
+    return launched
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tree", help="run phase 3 alone on the "
@@ -2878,7 +3019,7 @@ def main():
     ap.add_argument("--phase", choices=("tm", "tm_box", "lag", "yearly",
                                         "order", "point", "examples",
                                         "tm_cyclic", "bench", "gpu_tests",
-                                        "halo", "cards"),
+                                        "conformance", "halo", "cards"),
                     help="after the build, run this phase alone (no kernel "
                     "JSON and no ok line); 'cards' needs 4 cards")
     args = ap.parse_args()
@@ -2946,6 +3087,8 @@ def main():
                    "tm_cyclic": lambda: tm_cyclic_phase(st, cfg, dev, card),
                    "bench": lambda: bench_phase(card),
                    "gpu_tests": gpu_tests_phase,
+                   "conformance": lambda: conformance_phase(st, cfg, dev,
+                                                            card),
                    "halo": lambda: halo_phase(st, cfg, dev, card),
                    "cards": lambda: cards_phase(st, cfg),
                    }[args.phase](),
@@ -3082,6 +3225,8 @@ def main():
     # 19. bench_torch.py in a child; 20. the GPU tests in a child --------- #
     bench = bench_phase(card)
     gpu_tests_phase()
+    # 21. the original stack's oracle and the remaining snapshots --------- #
+    conformance = conformance_phase(st, cfg, dev, card)
     # 16. the parallel layer and the app runner; last, as it profiles ----- #
     halo_phase(st, cfg, dev, card)
 
@@ -3090,12 +3235,15 @@ def main():
                             "sim": (sim_launches, sim_per_step),
                             "tm": (tm_launches, tm_per_step),
                             "lag": lag, "yearly": yearly, **tm_cyclic,
-                            "bench": bench[BAND["name"]]},
+                            "bench": bench[BAND["name"]],
+                            "conformance": (conformance[BAND["name"]],
+                                            None)},
              DIA["name"]: {"box": (launches_box, dia_per_step),
                            "json": (json_launches, json_per_step),
                            "tm_box": (tm_box_launches, tm_box_per_step),
                            "examples": examples,
-                           "bench": bench[DIA["name"]]}}
+                           "bench": bench[DIA["name"]],
+                           "conformance": (conformance[DIA["name"]], None)}}
     for row in kernel_rows:
         by_path = paths[row["name"]]
         # a row of a mesh reports the path that runs at its shape

@@ -45,6 +45,8 @@ Module names follow ``safeincave_tpu`` so each counterpart is easy to find.
 Entry points run on the card unless given ``device="cpu"``.  The package
 imports torch, numpy and scipy, never jax or h5py.
 """
+__version__ = "0.1.0"    # the JAX package's version
+
 from ._device import default_device
 from . import utils as Utils  # noqa: N812  (reference-compatible alias)
 from .utils import GPa, MPa, kPa, minute, hour, day, year

@@ -74,6 +74,13 @@ tol 1e-8.
   on the twin's observed record, which is stored beside them, at the
   twin's Adam steps on the card.
 
+- ``tests/golden/torch_port_oracle_cube.npz``: tests/test_reference_oracle.py's
+  set-up (``torch_port_configs.oracle_run``): u, the total strain and
+  Desai's alpha after the elastic response and after one step, and the
+  step's iterations and error, in the JAX package's node order, so that
+  the card can be held to the JAX package entry for entry beside the
+  original stack's sorted oracle.
+
 The two mechanics simulator goldens hold, per stage (``eq_`` and ``op_``
 prefixes), the step table (fixed-point iterations, error, converged) and
 the final fields the stage saves (u and p_elems; q_elems too in operation).
@@ -438,6 +445,7 @@ CASES = {"cavern600": lambda tmp: write_steps(_cavern600),
          **{path: _tm_cyclic(path) for path in cfg.TM_CYCLIC},
          **{f"examples_{n}": _example(n) for n in cfg.EXAMPLE_RUNS},
          "examples_triaxial_sweep": triaxial_sweep,
+         "oracle_cube": lambda tmp: cfg.oracle_run(sc),
          **{f"examples_{n}": _calibration(n) for n in cfg.CALIBRATIONS}}
 
 

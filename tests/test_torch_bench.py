@@ -27,15 +27,6 @@ from torch_examples_check import one_torch_thread  # noqa: E402,F401
 from torch_tm_cyclic_check import rel  # noqa: E402
 
 CPU = torch.device("cpu")
-# a cache the port fills when the material is set and the JAX package on
-# first use
-CACHES = {"mat._CT_el"}
-
-
-def private(key):
-    """Whether a set-up key is a cache or a device attribute of one package
-    (a path component with a leading underscore, or ``device``)."""
-    return any(p.startswith("_") or p == "device" for p in key.split("."))
 
 
 def test_imports_neither_jax_nor_the_jax_package():
@@ -70,8 +61,8 @@ def test_build_equals_bench_py_build():
     ref = cfg.setup_arrays(bench.build())
     got = cfg.setup_arrays(bench_torch.build(device="cpu"))
     only = set(got) ^ set(ref)
-    assert all(private(k) for k in only), sorted(only)
-    common = sorted((set(got) & set(ref)) - CACHES)
+    assert all(cfg.private(k) for k in only), sorted(only)
+    common = sorted((set(got) & set(ref)) - cfg.CACHES)
     for table in ("bc._dirichlet_meta.", "bc._neumann_meta.",
                   "mat.elems_ne.2.", "solver.precond"):
         assert any(k.startswith(table) for k in common), table
@@ -103,17 +94,6 @@ def test_build_holds_the_cavern600_golden(one_torch_thread):
         assert err <= 1e-6, (name, err)
 
 
-def assert_same_setup(got, ref):
-    """Two set-ups' :func:`torch_port_configs.setup_arrays` equal array for
-    array, but for one package's caches and device attributes."""
-    only = set(got) ^ set(ref)
-    assert all(private(k) for k in only), sorted(only)
-    common = sorted((set(got) & set(ref)) - CACHES)
-    for k in common:
-        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
-    return common
-
-
 @pytest.mark.parametrize("flag", ["lag_tangent", "adaptive_rtol"])
 def test_build_flags_equal_bench_py_env(flag, monkeypatch):
     """``--lag-tangent`` and ``--adaptive-rtol`` set up what bench.py's
@@ -123,7 +103,7 @@ def test_build_flags_equal_bench_py_env(flag, monkeypatch):
     ref = cfg.setup_arrays(bench.build())
     got = cfg.setup_arrays(bench_torch.build(device="cpu", **{flag: True}))
     assert bool(ref[f"solver.{flag}"]) and bool(got[f"solver.{flag}"])
-    assert_same_setup(got, ref)
+    cfg.assert_same_setup(got, ref)
 
 
 @pytest.mark.parametrize("backend", ["band", "blockell", "dia"])
@@ -178,7 +158,7 @@ def test_tm_cyclic_builders_equal_the_twin(config):
         grid_name, fallback, label, device="cpu"))
     ref = cfg.setup_arrays(*bench.build_tm_cyclic(grid_name, fallback,
                                                   label))
-    common = assert_same_setup(got, ref)
+    common = cfg.assert_same_setup(got, ref)
     for table in ("heat_bc.", "bc._neumann_meta.", "mat.elems_th.",
                   "heat_T"):
         assert any(k.startswith(table) for k in common), table

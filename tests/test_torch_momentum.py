@@ -190,21 +190,9 @@ def _build_triaxial_port(nx=3):
     return eq
 
 
-def _run_mechanics_port(eq, n_steps=3, dt=cfg.HOUR):
-    """The reference-style step loop of golden_configs.run_mechanics."""
-    cfg.elastic_init(eq)
-    for k in range(n_steps):
-        ite, err = eq.solve_time_step((k + 1) * dt, dt, tol=1e-8,
-                                      maxiter=40)
-        assert err <= 1e-8, f"step {k} did not converge: {err}"
-        eq.update_internal_variables()
-        eq.update_eps_ne_rate_old()
-        eq.update_eps_ne_old(eq.sig_v, eq._last_sv_k, dt)
-    return eq.u.numpy(), eq.sig_v.numpy()
-
-
 def test_golden_triaxial():
-    u, sv = _run_mechanics_port(_build_triaxial_port())
+    u, sv, rows = cfg.run_sharding_steps(_build_triaxial_port(), n_steps=3)
+    assert (rows[:, 1] <= 1e-8).all(), rows
     with np.load(os.path.join(HERE, "golden", "fields.npz")) as z:
         _close(u, z["triaxial_u"], 1e-8, "triaxial_u")
         _close(sv, z["triaxial_sig"], 1e-8, "triaxial_sig")

@@ -20,6 +20,7 @@ those of examples/mechanics/MaterialCalibration.
 import contextlib
 import dataclasses
 import os
+import re
 import sys
 
 import numpy as np
@@ -104,13 +105,7 @@ def tm_cube(pkg, device=None, extra=None, nx=3):
     tv = [0.0, 1e9]
     heat = pkg.HeatDiffusion(grid, **dev)
     heat.set_solver(pkg.SolverSettings(method="cg", rtol=1e-12, max_it=500))
-    mat = pkg.Material(n, **dev)
-    mat.set_density(2200.0 * one)
-    mat.add_to_elastic(pkg.Spring(102e9 * one, 0.3 * one))
-    mat.add_to_non_elastic(pkg.Viscoelastic(105e11 * one, 10e9 * one,
-                                            0.32 * one, **dev))
-    mat.add_to_non_elastic(pkg.DislocationCreep(1.9e-20 * one, 51600 * one,
-                                                3.0 * one, **dev))
+    mat = golden_material(pkg, n, device)
     if extra is not None:
         mat.add_to_non_elastic(extra(pkg, n, dev))
     mat.set_specific_heat_capacity(850.0 * one)
@@ -508,6 +503,28 @@ def setup_arrays(eq, heat=None):
     return out
 
 
+# a cache the port fills when the material is set and the JAX package on
+# first use
+CACHES = {"mat._CT_el"}
+
+
+def private(key):
+    """Whether a set-up key is a cache or a device attribute of one package
+    (a path component with a leading underscore, or ``device``)."""
+    return any(p.startswith("_") or p == "device" for p in key.split("."))
+
+
+def assert_same_setup(got, ref):
+    """Two set-ups' :func:`setup_arrays` equal array for array, but for one
+    package's caches and device attributes; returns the keys compared."""
+    only = set(got) ^ set(ref)
+    assert all(private(k) for k in only), sorted(only)
+    common = sorted((set(got) & set(ref)) - CACHES)
+    for k in common:
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+    return common
+
+
 def tm_cyclic_fields(eq, heat, pq=False):
     """What the TM-cyclic goldens keep of a state: u, T and sig_v, or
     with ``pq`` the mean stress and the von Mises stress per element in
@@ -738,9 +755,11 @@ def sharding_box(pkg, nx=3, device=None, fp32_phase=False):
 
 
 def run_sharding_steps(eq, n_steps=2, dt=HOUR):
-    """tests/test_sharding.py's ``_run_steps``: the elastic response, then
-    ``n_steps`` per-step fixed points with the reference-style commit calls;
-    returns (u, sig_v, rows of [iterations, error])."""
+    """tests/test_sharding.py's ``_run_steps`` (and, with ``n_steps=3``,
+    tests/golden_configs.py's ``run_mechanics``): the elastic response,
+    then ``n_steps`` per-step fixed points (tol 1e-8, 40 iterations) with
+    the reference-style commit calls; returns (u, sig_v, rows of
+    [iterations, error])."""
     elastic_init(eq)
     rows = []
     for k in range(n_steps):
@@ -953,3 +972,292 @@ def overburden_standin(pkg, folder):
         f.write("\n".join(lines) + "\n")
     return folder
 
+
+
+# -- the original stack's oracle and tests/golden/fields.npz's snapshots ---- #
+ORACLE = os.path.join(ROOT, "tests", "files", "expected_values_equations",
+                      "expected_values.json")
+CUBE_COARSE = os.path.join(ROOT, "tests", "files", "cube_coarse")
+FIELDS_GOLDEN = os.path.join(ROOT, "tests", "golden", "fields.npz")
+# what the JAX package chose on the CPU where these references were made:
+# the 2level preconditioner, no f32 sweep and the cumsum operator; the
+# port's CUDA "auto" picks otherwise
+PINNED = {"precond": "2level", "fp32_phase": False}
+
+
+def pinned_kw(pin):
+    """(solver settings, equation arguments) of a conformance builder:
+    :data:`PINNED` and no automatic backend when ``pin``, else the
+    defaults."""
+    return (dict(PINNED), {"auto_backend": False}) if pin else ({}, {})
+
+
+def resolved(eq):
+    """What a momentum equation of either package runs with once its
+    "auto" settings are resolved on its device: (its preconditioner's
+    arrays as numpy, whether the f32 sweep runs, whether the band operator
+    is on, whether the block-DIA operator is on)."""
+    P, _ = eq._get_precond()
+    port = type(eq).__module__.startswith("safeincave_torch")
+    fp32 = (eq.solver.fp32_enabled(eq.device) if port
+            else eq.solver.fp32_enabled())
+    return ([as_np(a) for a in P], fp32, eq.kernel.band is not None,
+            eq.kernel.dia is not None)
+
+
+def oracle_cube(pkg, device=None, pin=False):
+    """tests/test_reference_oracle.py's set-up for either package: the
+    two-region cube_coarse mesh, the fully implicit theta = 0, CG at f64 and
+    rtol 1e-14, Spring + Kelvin-Voigt + dislocation creep (T = 293 K) +
+    Desai, gravity, rollers on WEST/SOUTH/BOTTOM and 4 / 4 / 4.1 MPa on
+    NORTH/EAST/TOP, then the elastic response and its stress.  Returns
+    (equation, the Desai element)."""
+    dev = on(pkg, device)
+    solver_kw, eq_kw = pinned_kw(pin)
+    grid = pkg.GridHandlerGMSH("geom", CUBE_COARSE)
+    n = grid.n_elems
+    one = np.ones(n)
+    eq = pkg.LinearMomentum(grid, theta=0.0, **eq_kw, **dev)
+    eq.set_solver(pkg.SolverSettings(method="cg", rtol=1e-14, max_it=2000,
+                                     precision="f64", **solver_kw))
+    mat = pkg.Material(n, **dev)
+    mat.set_density(2000.0 * one)
+    mat.add_to_elastic(pkg.Spring(102e9 * one, 0.3 * one))
+    mat.add_to_non_elastic(pkg.Viscoelastic(10.5e12 * one, 10e9 * one,
+                                            0.32 * one, **dev))
+    mat.add_to_non_elastic(pkg.DislocationCreep(1.9e-20 * one, 51600 * one,
+                                                3.0 * one, **dev))
+    desai = pkg.ViscoplasticDesai(
+        mu_1=5.366585700985981e-11 * one, N_1=3.1 * one,
+        a_1=1.965018496922832e-05 * one, eta=0.8275682807874163 * one,
+        n=3.0 * one, beta_1=0.0048 * one, beta=0.995 * one, m=-0.5 * one,
+        gamma=0.095 * one, sigma_t=5.0 * one, alpha_0=0.0022 * one, **dev)
+    mat.add_to_non_elastic(desai)
+    eq.set_material(mat)
+    eq.set_T0(293.0 * one)
+    eq.set_T(293.0 * one)
+    eq.build_body_force([0.0, 0.0, -9.81])
+    momBC = pkg.MomentumBC
+    tv = [0.0, 7200.0]
+    bc = momBC.BcHandler(eq)
+    for nm, comp in (("WEST", 0), ("SOUTH", 1), ("BOTTOM", 2)):
+        bc.add_boundary_condition(momBC.DirichletBC(nm, comp, [0., 0.], tv))
+    for nm, p in (("NORTH", 4.0), ("EAST", 4.0), ("TOP", 4.1)):
+        bc.add_boundary_condition(momBC.NeumannBC(
+            nm, 0, 0.0, 0.0, [p * MPa, p * MPa], tv, g=0.0))
+    eq.set_boundary_conditions(bc)
+    eq.bc.update_dirichlet(0.0)
+    eq.bc.update_neumann(0.0)
+    eq.solve_elastic_response()
+    eps = eq.compute_total_strain()
+    eq.compute_elastic_stress(eps)
+    return eq, desai
+
+
+def oracle_step(eq, desai):
+    """tests/test_reference_oracle.py's one nonlinear step: Desai's initial
+    hardening from the elastic stress, the initial rates, then one step of
+    3600 s from t = 0 (tol 1e-9, 60 iterations).  Returns (iterations,
+    error)."""
+    desai.compute_initial_hardening(eq.sig_v)
+    eq.compute_eps_ne_rate(eq.sig_v, 0.0)
+    eq.update_eps_ne_rate_old()
+    return eq.solve_time_step(0.0, 3600.0, tol=1e-9, maxiter=60)
+
+
+def oracle_run(pkg, device=None, pin=False):
+    """:func:`oracle_cube` and :func:`oracle_step` of ``pkg`` as numpy: u,
+    the total strain (tensorial Voigt) and Desai's alpha after the elastic
+    response (alpha after the initial hardening) and after the step, and
+    the step's iterations and error."""
+    eq, desai = oracle_cube(pkg, device, pin)
+    run = {"u_elastic": np.array(as_np(eq.u)),
+           "eps_elastic": np.array(as_np(eq.compute_total_strain()))}
+    desai.compute_initial_hardening(eq.sig_v)
+    run["alpha_elastic"] = np.array(as_np(desai.state["alpha"]))
+    ite, err = oracle_step(eq, desai)
+    run.update(u_step=np.array(as_np(eq.u)),
+               eps_step=np.array(as_np(eq.eps_tot_v)),
+               alpha_step=np.array(as_np(desai.state["alpha"])),
+               iterations=np.asarray(ite), error=np.asarray(err))
+    return run
+
+
+# tests/test_reference_oracle.py's checks: (oracle key, oracle_run key,
+# tolerance on sorted magnitudes, or on the signed 9-component multiset for
+# a strain); the oracle kept alpha frozen over its first step
+ORACLE_CHECKS = (("u_0", "u_elastic", 5e-7),
+                 ("eps_tot_0", "eps_elastic", 5e-6),
+                 ("alpha_0", "alpha_elastic", 2e-6),
+                 ("alpha_1", "alpha_elastic", 2e-6),
+                 ("u_1", "u_step", 5e-7), ("eps_tot_1", "eps_step", 5e-6))
+
+
+def oracle_distance(run, oracle, key):
+    """The distance of :func:`oracle_run`'s field to the oracle's ``key``,
+    as tests/test_reference_oracle.py measures it."""
+    name = dict((k, r) for k, r, _ in ORACLE_CHECKS)[key]
+    if key.startswith("eps"):
+        return strain_multiset_rel(run[name], oracle[key])
+    return sorted_rel(run[name], oracle[key])
+
+
+def sorted_rel(got, want):
+    """Largest distance of two value multisets (magnitudes sorted) over
+    max|want|: the comparison the oracle allows, its node order being
+    dolfin's."""
+    got = np.sort(np.abs(as_np(got).reshape(-1)))
+    want = np.sort(np.abs(np.asarray(want).reshape(-1)))
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def strain_multiset_rel(eps_v, want):
+    """:func:`sorted_rel`'s signed twin for a total strain: the tensorial
+    Voigt rows expanded to the 9 components the oracle froze (each shear
+    twice), sorted."""
+    ev = as_np(eps_v)
+    got = np.sort(np.concatenate([ev[:, :3], ev[:, 3:], ev[:, 3:]],
+                                 axis=1).reshape(-1))
+    want = np.sort(np.asarray(want))
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def golden_material(pkg, n, device=None):
+    """tests/golden_configs.py's ``_material`` (Spring + Kelvin-Voigt +
+    dislocation creep) for either package."""
+    dev = on(pkg, device)
+    one = np.ones(n)
+    mat = pkg.Material(n, **dev)
+    mat.set_density(2200.0 * one)
+    mat.add_to_elastic(pkg.Spring(102e9 * one, 0.3 * one))
+    mat.add_to_non_elastic(pkg.Viscoelastic(105e11 * one, 10e9 * one,
+                                            0.32 * one, **dev))
+    mat.add_to_non_elastic(pkg.DislocationCreep(1.9e-20 * one, 51600 * one,
+                                                3.0 * one, **dev))
+    return mat
+
+
+def cavern_box(pkg, device=None, pin=False):
+    """tests/golden_configs.py's ``build_cavern_box`` for either package:
+    a 100 x 100 x 200 m box of 4 x 4 x 4 cells, Spring + Kelvin-Voigt + dislocation creep,
+    gravity, rollers on the five other faces and a hydrostatic column on
+    TOP (10-12 MPa plus 800 kg/m^3 from z = 200 m), BiCGStab at 1e-12."""
+    dev = on(pkg, device)
+    solver_kw, eq_kw = pinned_kw(pin)
+    grid = pkg.GridBox(Lx=100.0, Ly=100.0, Lz=200.0, nx=4, ny=4, nz=4)
+    eq = pkg.LinearMomentum(grid, theta=0.5, **eq_kw, **dev)
+    eq.set_solver(pkg.SolverSettings(method="bicgstab", rtol=1e-12,
+                                     max_it=500, **solver_kw))
+    n = eq.n_elems
+    eq.set_material(golden_material(pkg, n, device))
+    eq.set_T0(298.0 * np.ones(n))
+    eq.set_T(298.0 * np.ones(n))
+    eq.build_body_force([0.0, 0.0, -9.81])
+    momBC = pkg.MomentumBC
+    bc = momBC.BcHandler(eq)
+    tv = [0.0, 1e9]
+    for nm, comp in (("WEST", 0), ("EAST", 0), ("SOUTH", 1), ("NORTH", 1),
+                     ("BOTTOM", 2)):
+        bc.add_boundary_condition(momBC.DirichletBC(nm, comp, [0., 0.], tv))
+    bc.add_boundary_condition(momBC.NeumannBC(
+        "TOP", 2, density=800.0, ref_pos=200.0,
+        values=[10 * MPa, 12 * MPa], time_values=tv, g=-9.81))
+    eq.set_boundary_conditions(bc)
+    return eq
+
+
+def interlayer_tm(pkg, device=None, pin=False):
+    """tests/golden_configs.py's ``build_interlayer_tm`` for either
+    package, on ``pkg``'s own cavern generator: the revolved-profile cavern
+    (n = 5) with two dipping interlayer bands, dislocation creep in the
+    salt and Mohr-Coulomb viscoplasticity in the interlayers (each masked
+    by region), Thermoelastic, a cooling Dirichlet Top and Robin cavern wall
+    for the heat equation, 15 MPa on Top and a 24 h sinusoidal cavern
+    pressure.  Returns (momentum, heat)."""
+    from importlib import import_module
+    cg = import_module(pkg.__name__ + ".mesh.cavern_gen")
+    dev = on(pkg, device)
+    solver_kw, eq_kw = pinned_kw(pin)
+    grid = cg.GridCavern(L=450.0, H=660.0, n=5, interlayers=[
+        cg.InterlayerBand(250.0, 40.0, dip_deg=8.0),
+        cg.InterlayerBand(430.0, 35.0, dip_deg=-5.0)])
+    n_el = grid.n_elems
+    one = np.ones(n_el)
+    inter = np.asarray(grid.get_parameter(
+        {r: (1.0 if r.startswith("Interlayer") else 0.0)
+         for r in grid.get_subdomain_names()}))
+    salt = 1.0 - inter
+
+    heat = pkg.HeatDiffusion(grid, **dev)
+    heat.set_solver(pkg.SolverSettings(method="cg", rtol=1e-12, max_it=500))
+    mat = pkg.Material(n_el, **dev)
+    mat.set_density(2200.0 * salt + 2900.0 * inter)
+    mat.add_to_elastic(pkg.Spring(102e9 * salt + 70e9 * inter,
+                                  0.30 * salt + 0.27 * inter))
+    mat.add_to_non_elastic(pkg.DislocationCreep(
+        1.9e-20 * salt, 51600 * one, 3.0 * one, name="ds_creep", **dev))
+    mat.add_to_non_elastic(pkg.MohrCoulombViscoplastic(
+        mu_1=1e-9 * inter, N_1=1.0 * one, cohesion=4.0 * one,
+        friction_angle=np.radians(35.0) * one,
+        dilation_angle=0.0 * one, sigma_t=1.0 * one, **dev))
+    mat.add_to_thermoelastic(pkg.Thermoelastic(4.4e-5 * one, **dev))
+    mat.set_specific_heat_capacity(850.0 * one)
+    mat.set_thermal_conductivity(7.0 * one)
+    heat.set_material(mat)
+    heat.set_initial_T(298.0 * np.ones(grid.n_nodes))
+    heatBC = pkg.HeatBC
+    bc_h = heatBC.BcHandler(heat)
+    tv3 = [0.0, 12 * HOUR, 1e9]
+    bc_h.add_boundary_condition(heatBC.DirichletBC("Top", [298., 295., 295.],
+                                                   tv3))
+    bc_h.add_boundary_condition(heatBC.RobinBC("Cavern", [298., 290., 290.],
+                                               5.0, tv3))
+    heat.set_boundary_conditions(bc_h)
+
+    eq = pkg.LinearMomentum(grid, theta=0.5, **eq_kw, **dev)
+    eq.set_solver(pkg.SolverSettings(method="bicgstab", rtol=1e-12,
+                                     max_it=500, **solver_kw))
+    eq.set_material(mat)
+    eq.build_body_force([0.0, 0.0, 0.0])
+    momBC = pkg.MomentumBC
+    bc_m = momBC.BcHandler(eq)
+    tv = [0.0, 1e9]
+    for nm, comp in (("West", 0), ("East", 0), ("South", 1), ("North", 1),
+                     ("Bottom", 2)):
+        bc_m.add_boundary_condition(momBC.DirichletBC(nm, comp, [0., 0.],
+                                                      tv))
+    t_sched = list(np.arange(0.0, 80 * HOUR, HOUR))
+    p_sched = list(8 * MPa + 2 * MPa
+                   * np.sin(2 * np.pi * np.asarray(t_sched) / (24 * HOUR)))
+    bc_m.add_boundary_condition(momBC.NeumannBC("Top", 2, 0.0, 0.0,
+                                                [15 * MPa, 15 * MPa], tv,
+                                                g=0.0))
+    bc_m.add_boundary_condition(momBC.NeumannBC("Cavern", 2, 0.0, 0.0,
+                                                p_sched, t_sched, g=0.0))
+    eq.set_boundary_conditions(bc_m)
+    return eq, heat
+
+
+# -- the Python blocks of the port's migration page ------------------------ #
+MIGRATION = os.path.join(ROOT, "docs", "MIGRATION_TORCH.md")
+
+
+def migration_blocks(path=MIGRATION):
+    """The ```python blocks of docs/MIGRATION_TORCH.md, in order."""
+    with open(path) as f:
+        return re.findall(r"^```python\n(.*?)^```", f.read(), re.M | re.S)
+
+
+def run_migration_blocks(device, cwd):
+    """Run every Python block of docs/MIGRATION_TORCH.md in order, in one
+    namespace that holds ``device``, with ``cwd`` as the working directory
+    (the blocks write their files there).  Returns the namespace."""
+    ns = {"__name__": "migration", "device": device}
+    old = os.getcwd()
+    os.chdir(cwd)
+    try:
+        for i, block in enumerate(migration_blocks()):
+            exec(compile(block, f"{MIGRATION}:block{i + 1}", "exec"), ns)
+    finally:
+        os.chdir(old)
+    return ns
