@@ -32,7 +32,8 @@ dt = 1 h.  Sections, in bench.py's order (``--sections`` picks some):
   per-step host-controlled loop.
 
 Progress goes to stderr, then a line ``bench_torch summary {...}`` with the
-headline, the counts and every kernel's launches.  Stdout gets one JSON
+headline, the counts, every kernel's launches and, for the headline and
+``hostsync``, the host reads of tensors per step.  Stdout gets one JSON
 line: ``{"metric", "value", "unit", "vs_baseline", "vs_baseline_measured"}``.
 Matvecs are timed with CUDA events, steps with the host clock between
 ``torch.cuda.synchronize()`` calls.  Without ``--device cpu`` the run needs a
@@ -56,6 +57,7 @@ import torch
 import safeincave_torch as sc
 from safeincave_torch.checkpoint import load_checkpoint, save_checkpoint
 from safeincave_torch.fem.dia import BlockDIA
+from safeincave_torch.fem.graphs import counting_reads
 from safeincave_torch.fem.kernels import MomentumKernel
 from safeincave_torch.utils import find_grid
 
@@ -389,12 +391,14 @@ def headline(eq, steps=20, repeats=5):
             before = launches_of(eq.kernel)
             sync(device)
             t0 = time.perf_counter()
-            rows, retries = run_chunk(eq, window)
-            sync(device)
+            with counting_reads() as reads:
+                rows, retries = run_chunk(eq, window)
+                sync(device)
             secs = time.perf_counter() - t0
             got = moved("headline", eq, before)
             runs.append({"s_per_step": secs / steps, "rows": rows,
-                         "retries": retries, "launches": got})
+                         "retries": retries, "launches": got,
+                         "reads": reads[0]})
             log(f"repeat {r + 1}/{repeats}: {secs:.3f}s "
                 f"({1e3 * secs / steps:.1f} ms/step, {retries} f64 retries)")
     first = runs[0]
@@ -422,6 +426,8 @@ def headline(eq, steps=20, repeats=5):
                                  for k, v in first["launches"].items()},
            "launches": {k: sum(run["launches"][k] for run in runs)
                         for k in first["launches"]},
+           # host reads of tensors (item, tolist, float, int, bool)
+           "host_reads_per_step": first["reads"] / steps,
            "final_err": float(rows[-1, 1])}
     log(f"{steps} steps (fused driver), steps {steps + 1}-{2 * steps} from "
         f"one saved state, {repeats} repeats: median "
@@ -429,7 +435,8 @@ def headline(eq, steps=20, repeats=5):
         f"max {1e3 * out['max_s']:.1f}); {out['fp_per_step']:.2f} "
         f"fp-iters/step, {out['krylov_per_step']:.1f} krylov-iters/step"
         f"{launch_text(first['launches'], steps)}, {out['retries']} f64 "
-        f"retries, final err={out['final_err']:.2e}"
+        f"retries, final err={out['final_err']:.2e}, "
+        f"{out['host_reads_per_step']:.1f} host reads/step"
         f"; the same counts in every repeat")
     return out
 
@@ -867,16 +874,17 @@ def bench_hostsync(eq, n_steps=20):
     eq.commit_time_step(DT)
     iters_total = kry_total = 0
     t0 = time.perf_counter()
-    for k in range(n_steps):
-        ite, err = eq.solve_time_step(t_base + (k + 1) * DT, DT, tol=1e-8,
-                                      maxiter=40)
-        if not err <= 1e-8:
-            raise RuntimeError(f"host-sync step {k + 1} did not converge: "
-                               f"err={err:.3e}")
-        iters_total += ite
-        kry_total += eq.krylov_total
-        eq.commit_time_step(DT)
-    sync(device)
+    with counting_reads() as reads:
+        for k in range(n_steps):
+            ite, err = eq.solve_time_step(t_base + (k + 1) * DT, DT,
+                                          tol=1e-8, maxiter=40)
+            if not err <= 1e-8:
+                raise RuntimeError(f"host-sync step {k + 1} did not "
+                                   f"converge: err={err:.3e}")
+            iters_total += ite
+            kry_total += eq.krylov_total
+            eq.commit_time_step(DT)
+        sync(device)
     elapsed = time.perf_counter() - t0
     launched = moved("hostsync", eq, before)
     log(f"{n_steps} steps (per-step host sync): {elapsed:.3f}s "
@@ -884,8 +892,10 @@ def bench_hostsync(eq, n_steps=20):
         f"{iters_total / n_steps:.2f} fp-iters/step, "
         f"{kry_total / n_steps:.1f} krylov-iters/step"
         f"{launch_text(launched, n_steps + 1)}), final err={err:.2e}, "
-        f"last-solve res={eq.solver_stats[1]:.2e}")
-    return {"ms_per_step": 1e3 * elapsed / n_steps, "launches": launched}
+        f"last-solve res={eq.solver_stats[1]:.2e}, "
+        f"{reads[0] / n_steps:.1f} host reads/step")
+    return {"ms_per_step": 1e3 * elapsed / n_steps, "launches": launched,
+            "host_reads_per_step": reads[0] / n_steps}
 
 
 # --------------------------------------------------------------------------- #

@@ -315,6 +315,28 @@ Phases, one line each; any failure raises and the exit code is non-zero:
              listed.  Last, the Python blocks of docs/MIGRATION_TORCH.md
              run once with ``device="cuda"``.  Runs after phase 20.
 
+22. graphs - the captured time step (fem/graphs.py) against the same
+             functions under ``graphs.eager()``, three configurations:
+             cavern600 with the sweep off (phase 4's), the headline
+             configuration (cavern600, precond and sweep "auto", as
+             bench_torch.py builds it) and box17 (phase 6's).  Per
+             configuration two equations, one captured and one eager, from
+             their own elastic solves: steps 1-3 held to the golden of
+             phase 5 (cavern600, both cavern ways) or 7 (box17) as those
+             phases hold it, then three timed 3-step chunks with the two
+             in turns.  After every chunk: equal fixed-point and Krylov
+             counts, every field and state within 1e-12 of max|ref|
+             (bitwise reported).  Then a fresh cavern600 equation, captured,
+             at Krylov block sizes 1, 2, 4 and 8 in turns (ms/step, ms per
+             solve, host reads and Krylov iterations per step), and last
+             two profiled steps of each equation (torch.profiler: device
+             idle share, device operations per step).  Per configuration
+             and mode: ms/step, ms per tangent build and per linear solve
+             (CUDA events around each call), host reads per step (the
+             tensor read methods patched), graph replays and band/DIA
+             launches per step, the card's name and power limit.  Runs
+             after phase 21, before phase 16.
+
 Phase 9 runs its case twice, with the f32 sweep as "auto" selects it and
 with ``fp32_phase=False``, and prints both lines.
 
@@ -359,7 +381,7 @@ runs phase 3 alone on the ``safeincave_torch`` package of another checkout
 the kernels in turns within one call; it prints the kernel JSON and the
 card, and no ``ok`` line.
 
-    python3 chip_smoke.py --phase tm|tm_box|lag|yearly|order|point|examples|tm_cyclic|bench|gpu_tests|conformance|halo
+    python3 chip_smoke.py --phase tm|tm_box|lag|yearly|order|point|examples|tm_cyclic|bench|gpu_tests|conformance|graphs|halo
 
 builds the kernels and runs that phase alone (no ``ok`` line).
 """
@@ -3007,6 +3029,278 @@ def conformance_phase(st, cfg, dev, card):
     return launched
 
 
+# phase 22: the captured time step against graphs.eager(), in turns
+GRAPH_WAYS = (("cavern600", "cavern600", False),     # phase 4's equation
+              ("headline", "cavern600", "auto"),     # bench_torch.py's
+              ("box17", "box17", "auto"))            # phase 6's
+GRAPH_MODES = ("captured", "eager")
+GRAPH_TURNS = 3
+GRAPH_STEPS = 3          # steps per timed chunk
+GRAPH_TOL = 1e-12        # fields, captured against eager, of max|ref|
+GRAPH_BLOCKS = (1, 2, 4, 8)
+
+
+class StepClock:
+    """CUDA events around every call of an equation's tangent suite and
+    linear solves (the f64 solve and the f32 sweep's): the device's time
+    from the call's first launch to its last, host waits inside
+    included."""
+
+    def __init__(self, eq):
+        import torch
+        self.spans = {"tangent": [], "solve": []}
+
+        def timed(kind, fn):
+            def call(*args, **kw):
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(*args, **kw)
+                stop.record()
+                self.spans[kind].append((start, stop))
+                return out
+            return call
+
+        eq._tangent = timed("tangent", eq._tangent)
+        eq._solve_lin = timed("solve", eq._get_solver())
+        if eq.solver.fp32_enabled(eq.device):
+            eq._solve32 = timed("solve", eq._get_solve32())
+
+    def take(self):
+        """{kind: (ms, calls)} since the last take."""
+        import torch
+        torch.cuda.synchronize()
+        out = {k: (sum(a.elapsed_time(b) for a, b in v), len(v))
+               for k, v in self.spans.items()}
+        for v in self.spans.values():
+            v.clear()
+        return out
+
+
+def mode_ctx(mode):
+    from safeincave_torch.fem import graphs
+    return graphs.eager() if mode == "eager" else contextlib.nullcontext()
+
+
+def graph_chunk(eq, mode, clock, t_first, n):
+    """``n`` steps of solve_time_steps at 1 h, captured or under
+    ``graphs.eager()``: rows, ms/step, ms per tangent build and per linear
+    solve, host reads, graph replays and hand-kernel launches per step."""
+    import torch
+    from safeincave_torch.fem import graphs
+    kern = eq.kernel.band if eq.kernel.band is not None else eq.kernel.dia
+    launches, replays = kern.launches, eq.graphs.replays
+    clock.take()
+    with mode_ctx(mode):
+        torch.cuda.synchronize()
+        with graphs.counting_reads() as reads:
+            t0 = time.perf_counter()
+            rows = eq.solve_time_steps([t_first + k * HOUR for k in range(n)],
+                                       [HOUR] * n, tol=1e-8, maxiter=40)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+    spans = clock.take()
+    if not (rows[:, 5] == 1).all():
+        raise AssertionError(f"graphs {mode}: non-converged steps "
+                             f"{rows[:, [0, 1, 5]]}")
+    per = lambda k: spans[k][0] / max(spans[k][1], 1)  # noqa: E731
+    return dict(rows=rows, ms=1e3 * secs / n, reads=reads[0] / n,
+                replays=(eq.graphs.replays - replays) / n,
+                launches=(kern.launches - launches) / n,
+                launches_total=kern.launches - launches,
+                tangent_ms=per("tangent"), solve_ms=per("solve"),
+                builds=spans["tangent"][1] / n, solves=spans["solve"][1] / n)
+
+
+def equation_fields(eq):
+    return [eq.u, eq.sig_v, eq.eps_tot_v] + [
+        v for e in eq.mat.elems_ne for v in e.state.values()
+        if v.is_floating_point()]
+
+
+def same_work(tag, rows, eqs):
+    """Captured against eager: equal fixed-point and Krylov counts in
+    ``rows`` ({mode: rows}), fields within GRAPH_TOL of max|ref|; returns
+    (largest distance, bitwise)."""
+    if not np.array_equal(rows["captured"][:, [0, 2]],
+                          rows["eager"][:, [0, 2]]):
+        raise AssertionError(
+            f"graphs {tag}: captured counts {rows['captured'][:, [0, 2]]} "
+            f"against eager {rows['eager'][:, [0, 2]]}")
+    worst, bitwise = 0.0, True
+    for a, b in zip(equation_fields(eqs["captured"]),
+                    equation_fields(eqs["eager"])):
+        if a.equal(b):
+            continue
+        bitwise = False
+        scale = float(b.abs().max())
+        worst = max(worst, float((a - b).abs().max()) / (scale or 1.0))
+    if worst > GRAPH_TOL:
+        raise AssertionError(f"graphs {tag}: captured fields {worst:.3e} of "
+                             f"max|ref| from eager (> {GRAPH_TOL})")
+    return worst, bitwise
+
+
+def idle_share(eq, mode, t_first, n=2):
+    """(rows, device idle share, device operations per step) of ``n`` steps
+    under torch.profiler: 1 - (device time of every kernel, copy and fill)
+    / (host clock of the window); share and operations None when the
+    profiler recorded no device event.  The device activity alone: the
+    host operators' events would take the profiler longer to parse than
+    the steps take to run."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with mode_ctx(mode):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            rows = eq.solve_time_steps([t_first + k * HOUR for k in range(n)],
+                                       [HOUR] * n, tol=1e-8, maxiter=40)
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+    if not (rows[:, 5] == 1).all():
+        raise AssertionError(f"graphs {mode}: profiled steps did not "
+                             f"converge")
+    busy_us = ops = 0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            us = getattr(ev, "self_device_time_total", None)
+            busy_us += ev.self_cuda_time_total if us is None else us
+            ops += ev.count
+    if not ops:
+        return rows, None, None
+    return rows, 1.0 - busy_us / wall_us, ops / n
+
+
+def graphs_phase(st, cfg, card):
+    """Phase 22: cavern600 (sweep off), the headline configuration (sweep
+    "auto") and box17, each captured and under ``graphs.eager()`` in
+    turns; the block-size sweep at cavern600; the profiled steps last (the
+    profiler leaves a cost on every later launch of its process).  Returns
+    {kernel name: (launches, per step)} of the captured runs' timed
+    chunks at cavern600 and box17."""
+    from safeincave_torch.fem import solvers
+    ways, secs, t_start = {}, {}, time.perf_counter()
+    for name, golden_name, sweep in GRAPH_WAYS:
+        golden = np.load(GOLDEN.format(golden_name))
+        grid = (cfg.cavern600_grid(st) if golden_name == "cavern600"
+                else cfg.box17_grid(st))
+        eqs, clocks, u_el = {}, {}, {}
+        for mode in GRAPH_MODES:
+            with mode_ctx(mode):
+                eq = cfg.wire_bench(st, grid, precond="auto",
+                                    fp32_phase=sweep)
+                cfg.elastic_init(eq)
+            eqs[mode], clocks[mode] = eq, StepClock(eq)
+            u_el[mode] = eq.u.cpu().numpy()
+        # steps 1-3 against the golden phases 5 and 7 hold
+        first = {m: graph_chunk(eqs[m], m, clocks[m], HOUR, 3)
+                 for m in GRAPH_MODES}
+        for m in GRAPH_MODES:
+            parity(f"graphs {name} {m}", golden, u_el[m], first[m]["rows"],
+                   eqs[m].u.cpu().numpy(), eqs[m].sig_v.cpu().numpy())
+        w = dict(eqs=eqs, clocks=clocks, runs={m: [] for m in GRAPH_MODES},
+                 t=4 * HOUR, golden=golden_name)
+        w["gap"], w["bitwise"] = same_work(
+            f"{name} steps 1-3", {m: r["rows"] for m, r in first.items()},
+            eqs)
+        for turn in range(GRAPH_TURNS):
+            pair = {m: graph_chunk(eqs[m], m, clocks[m], w["t"], GRAPH_STEPS)
+                    for m in GRAPH_MODES}
+            hold_graphs(w, f"{name} turn {turn + 1}",
+                 {m: r["rows"] for m, r in pair.items()})
+            for m in GRAPH_MODES:
+                w["runs"][m].append(pair[m])
+            w["t"] += GRAPH_STEPS * HOUR
+        ways[name] = w
+        secs[name] = time.perf_counter() - t_start - sum(secs.values())
+    block_sweep(st, cfg, solvers, card)
+    secs["block sizes"] = time.perf_counter() - t_start - sum(secs.values())
+    launched = {}
+    for name, w in ways.items():
+        idle = {m: idle_share(w["eqs"][m], m, w["t"]) for m in GRAPH_MODES}
+        hold_graphs(w, f"{name} profiled", {m: r[0] for m, r in idle.items()})
+        report(name, w, idle, card)
+        kname = BAND["name"] if w["golden"] == "cavern600" else DIA["name"]
+        n = sum(r["launches_total"] for r in w["runs"]["captured"])
+        if n <= 0:
+            raise AssertionError(f"graphs {name}: the captured run launched "
+                                 f"no {kname}")
+        if name != "headline":
+            launched[kname] = (n, n / (GRAPH_TURNS * GRAPH_STEPS))
+    secs["profiled"] = time.perf_counter() - t_start - sum(secs.values())
+    say("graphs", "phase 22 took " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in secs.items())
+        + f" ({time.perf_counter() - t_start:.1f} s)")
+    return launched
+
+
+def hold_graphs(w, tag, rows):
+    g, b = same_work(tag, rows, w["eqs"])
+    w["gap"], w["bitwise"] = max(w["gap"], g), w["bitwise"] and b
+
+
+def report(name, w, idle, card):
+    kind = "band" if w["golden"] == "cavern600" else "DIA"
+    for m in GRAPH_MODES:
+        rs = w["runs"][m]
+        med = lambda k: float(np.median([r[k] for r in rs]))  # noqa: E731
+        _, share, ops = idle[m]
+        idle_text = ("not measured (no device event)" if share is None else
+                     f"{100 * share:.1f}% over 2 steps ({ops:.0f} device "
+                     f"operations/step)")
+        chunks = ", ".join(f"{r['ms']:.1f}" for r in rs)
+        say("graphs", f"{name} {m}: {chunks} ms/step (median "
+                      f"{med('ms'):.1f}); tangent build "
+                      f"{med('tangent_ms'):.2f} ms ({med('builds'):.2f}/step)"
+                      f", linear solve {med('solve_ms'):.2f} ms "
+                      f"({med('solves'):.2f}/step); "
+                      f"{rs[0]['rows'][:, 0].mean():.2f} fixed-point, "
+                      f"{rs[0]['rows'][:, 2].mean():.1f} Krylov it/step; "
+                      f"host reads {med('reads'):.1f}/step; graph replays "
+                      f"{med('replays'):.1f}/step; {kind} launches "
+                      f"{med('launches'):.1f}/step; device idle {idle_text}"
+                      f" | {card}")
+    say("graphs", f"{name}: captured = eager in fixed-point and Krylov "
+                  f"counts in every chunk; fields "
+                  + ("bitwise equal" if w["bitwise"] else
+                     f"within {w['gap']:.2e} of max|ref|") + f" | {card}")
+
+
+def block_sweep(st, cfg, solvers, card):
+    """Phase 4's equation captured at each block size of GRAPH_BLOCKS, from
+    its elastic state: one chunk each to capture, then two timed rounds in
+    turns (descending, ascending).  The module's BLOCK is restored."""
+    chosen = solvers.BLOCK
+    eq = cfg.wire_bench(st, cfg.cavern600_grid(st), precond="auto")
+    cfg.elastic_init(eq)
+    clock, t = StepClock(eq), HOUR
+    got = {B: [] for B in GRAPH_BLOCKS}
+    order = (list(GRAPH_BLOCKS) + list(GRAPH_BLOCKS[::-1])
+             + list(GRAPH_BLOCKS))
+    try:
+        for i, B in enumerate(order):
+            solvers.BLOCK = B
+            r = graph_chunk(eq, "captured", clock, t, GRAPH_STEPS)
+            t += GRAPH_STEPS * HOUR
+            if i >= len(GRAPH_BLOCKS):
+                got[B].append(r)
+    finally:
+        solvers.BLOCK = chosen
+    parts = []
+    for B, rs in got.items():
+        ms = "/".join(f"{r['ms']:.1f}" for r in rs)
+        parts.append(f"B={B} {ms} ms/step, solve "
+                     f"{np.mean([r['solve_ms'] for r in rs]):.2f} ms, "
+                     f"{np.mean([r['reads'] for r in rs]):.1f} reads/step, "
+                     f"{np.mean([r['rows'][:, 2].mean() for r in rs]):.1f} "
+                     f"Krylov it/step")
+    say("graphs", "cavern600 captured by Krylov block size: "
+                  + "; ".join(parts) + f" (module BLOCK = {chosen}) | "
+                  + card)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tree", help="run phase 3 alone on the "
@@ -3019,7 +3313,8 @@ def main():
     ap.add_argument("--phase", choices=("tm", "tm_box", "lag", "yearly",
                                         "order", "point", "examples",
                                         "tm_cyclic", "bench", "gpu_tests",
-                                        "conformance", "halo", "cards"),
+                                        "conformance", "graphs", "halo",
+                                        "cards"),
                     help="after the build, run this phase alone (no kernel "
                     "JSON and no ok line); 'cards' needs 4 cards")
     args = ap.parse_args()
@@ -3089,6 +3384,7 @@ def main():
                    "gpu_tests": gpu_tests_phase,
                    "conformance": lambda: conformance_phase(st, cfg, dev,
                                                             card),
+                   "graphs": lambda: graphs_phase(st, cfg, card),
                    "halo": lambda: halo_phase(st, cfg, dev, card),
                    "cards": lambda: cards_phase(st, cfg),
                    }[args.phase](),
@@ -3227,6 +3523,8 @@ def main():
     gpu_tests_phase()
     # 21. the original stack's oracle and the remaining snapshots --------- #
     conformance = conformance_phase(st, cfg, dev, card)
+    # 22. the captured time step against graphs.eager(); it profiles ----- #
+    graph_launches = graphs_phase(st, cfg, card)
     # 16. the parallel layer and the app runner; last, as it profiles ----- #
     halo_phase(st, cfg, dev, card)
 
@@ -3237,13 +3535,15 @@ def main():
                             "lag": lag, "yearly": yearly, **tm_cyclic,
                             "bench": bench[BAND["name"]],
                             "conformance": (conformance[BAND["name"]],
-                                            None)},
+                                            None),
+                            "graphs": graph_launches[BAND["name"]]},
              DIA["name"]: {"box": (launches_box, dia_per_step),
                            "json": (json_launches, json_per_step),
                            "tm_box": (tm_box_launches, tm_box_per_step),
                            "examples": examples,
                            "bench": bench[DIA["name"]],
-                           "conformance": (conformance[DIA["name"]], None)}}
+                           "conformance": (conformance[DIA["name"]], None),
+                           "graphs": graph_launches[DIA["name"]]}}
     for row in kernel_rows:
         by_path = paths[row["name"]]
         # a row of a mesh reports the path that runs at its shape

@@ -9,11 +9,17 @@ float64 fixed point that the cavern benchmark runs).  One linearized step:
     L(v)     = body + neumann + <CT eps_rhs, eps(v)>
     solve by preconditioned Krylov with Dirichlet masking/lifting
 
-The JAX package runs a time step as one jitted ``lax.while_loop``; here the
-fixed-point and Krylov loops are Python loops that read their conditions on
-the host, with the same update sequence.  On CUDA the early iterations of a
-step run as a float32 sweep (``SolverSettings.fp32_phase``) before the f64
-finish, as the JAX package does on an accelerator.
+The JAX package runs a time step as one jitted ``lax.while_loop``.  Here
+the fixed point is a Python loop with the same update sequence: on CUDA each
+iteration replays three captured graphs (the tangent suite, the right-hand
+side, the update with its packed statistics; fem/graphs.py) around the
+linear solve, whose Krylov loops test their stopping conditions on the
+device and replay in blocks (fem/solvers.py).  The host reads one packed
+tensor per Krylov block and one per fixed-point iteration, and decides
+rebuilds, tolerances, rollbacks and solve acceptance from them.  On CUDA the
+early iterations of a step run as a float32 sweep
+(``SolverSettings.fp32_phase``) before the f64 finish, as the JAX package
+does on an accelerator.
 
 ``solve_tm_time_steps`` advances the coupled thermo-mechanical step (heat
 step, nodal-to-element temperature, thermal strain, fixed point, commit)
@@ -42,8 +48,10 @@ from .._device import default_device
 from ..linalg import inv3x3
 from ..materials.base import _as_voigt, apply66
 from ..utils import voigt_to_tensor, voigt_weight
+from .graphs import Graphs
 from .kernels import F32, F64, MomentumKernel
-from .solvers import bicgstab_solve, cg_solve, ir_solve
+from .solvers import (_SPECS, _ir, _krylov, _vdot, bicgstab_solve, cg_solve,
+                      ir_solve)
 
 
 @dataclass
@@ -274,8 +282,14 @@ def _assembled(kern):
     return kern.dia if kern.dia is not None else kern.blockell
 
 
+def _cumsum_operator(kern):
+    """``CT_soa -> (x -> A(CT) x)`` on the cumsum matvec."""
+    return lambda CT_soa: (lambda x: kern.matvec(CT_soa, x))
+
+
 def _f64_action(kern, CT_hi):
-    """(f64 stiffness action, f64 planes or None) of one linearized solve.
+    """(make, data, planes) of one linearized solve's f64 stiffness action
+    ``make(data)``; ``planes`` are the f64 planes, or None.
 
     A general (not structured) block-DIA operator, or a block-ELL one,
     assembles f64 planes and applies them; otherwise the action is the
@@ -284,27 +298,27 @@ def _f64_action(kern, CT_hi):
     op = _assembled(kern)
     if op is not None and not op.structured:
         planes = op.assemble(CT_hi)
-        return op.operator(planes), planes
-    return (lambda x: kern.matvec(CT_hi, x)), None
+        return op.operator, planes, planes
+    return _cumsum_operator(kern), CT_hi, None
 
 
 def _f32_action(kern, CT, planes_hi):
-    """The f32 Krylov operator of one linearized solve: the f32 cast of the
-    general DIA or block-ELL planes, the DIA planes assembled from the f32
-    tangent on a structured box, the band kernel, or the f32 cumsum
-    matvec."""
+    """(make, data) of the f32 Krylov operator ``make(data)`` of one
+    linearized solve: the f32 cast of the general DIA or block-ELL planes,
+    the DIA planes assembled from the f32 tangent on a structured box, the
+    band kernel, or the f32 cumsum matvec."""
     op = _assembled(kern)
     if planes_hi is not None:
-        return op.operator(planes_hi.to(F32))
+        return op.operator, planes_hi.to(F32)
     CT_lo = kern.prep(CT.to(F32))
     if op is not None:
-        return op.operator(op.assemble(CT_lo))
+        return op.operator, op.assemble(CT_lo)
     if kern.band is not None:
-        return kern.band.operator(kern.band.pack_ct(CT_lo))
-    return lambda x: kern.matvec(CT_lo, x)
+        return kern.band.operator, kern.band.pack_ct(CT_lo)
+    return _cumsum_operator(kern), CT_lo
 
 
-def _make_masked_solver(kern, settings: SolverSettings, apply_M,
+def _make_masked_solver(kern, settings: SolverSettings, apply_M, graphs,
                         zero_dirichlet: bool = False):
     """Build ``solve_lin(CT, b, mask, u_bc, x0, rtol, P) -> (x, iters, res,
     b_eff_norm)``.
@@ -316,14 +330,22 @@ def _make_masked_solver(kern, settings: SolverSettings, apply_M,
     mixed iterate and keeps whichever residual is smaller.
     ``zero_dirichlet`` drops the lifting matvec A @ u_bc, which is zero for
     homogeneous supports.
+
+    On CUDA the Krylov blocks replay from ``graphs`` (one graph per
+    operator, precision and preconditioner): the operators and masks they
+    close over are bound buffers, refreshed once per solve.  The decisions
+    read the host values the blocks' packed reads brought back.
     """
-    solve = settings.solve_fn()
+    spec = _SPECS[settings.solve_fn()]
     mixed = settings.precision == "mixed"
+    run = graphs.runner("lin")
+    bind = graphs.bind
 
     def solve_lin(CT, b, mask, u_bc, x0, rtol, P):
-        CT_hi = kern.prep(CT)
-        mv_hi, planes_hi = _f64_action(kern, CT_hi)
-        free = 1.0 - mask
+        make_hi, data_hi, planes_hi = _f64_action(kern, kern.prep(CT))
+        mv_hi = make_hi(bind("lin.hi", data_hi))
+        mask = bind("lin.mask", mask)
+        free = bind("lin.free", 1.0 - mask)
 
         def Aop(x):
             return mask * mv_hi(mask * x) + free * x
@@ -338,13 +360,14 @@ def _make_masked_solver(kern, settings: SolverSettings, apply_M,
         b_eff_norm = torch.sqrt(torch.dot(b_eff.reshape(-1),
                                           b_eff.reshape(-1)))
         if not mixed:
-            x, k, res = solve(Aop, b_eff, x0, M_inv, rtol=rtol,
-                              maxiter=settings.max_it)
+            x, k, res, _ = _krylov(spec, Aop, b_eff, x0, M_inv, rtol, 0.0,
+                                   settings.max_it, _vdot, run)
             return x, k, res, b_eff_norm
 
-        mask32 = mask.to(F32)
-        free32 = 1.0 - mask32
-        mv_lo = _f32_action(kern, CT, planes_hi)
+        mask32 = bind("lin.mask32", mask.to(F32))
+        free32 = bind("lin.free32", 1.0 - mask32)
+        make_lo, data_lo = _f32_action(kern, CT, planes_hi)
+        mv_lo = make_lo(bind("lin.lo", data_lo))
 
         def Aop32(x):
             return mask32 * mv_lo(mask32 * x) + free32 * x
@@ -352,36 +375,41 @@ def _make_masked_solver(kern, settings: SolverSettings, apply_M,
         def M_inv32(r):
             return apply_M(P, r, mask32)
 
-        x, k, res = ir_solve(Aop, Aop32, b_eff, x0, M_inv32,
-                             inner_solve=solve, rtol=rtol,
-                             inner_rtol=settings.inner_rtol,
-                             inner_maxiter=settings.max_it,
-                             max_passes=settings.max_passes)
-        if float(res) > rtol * float(b_eff_norm):
-            x2, k2, res2 = solve(Aop, b_eff, x, M_inv, rtol=rtol,
-                                 maxiter=settings.max_it)
+        x, k, res, res_h, bnorm_h = _ir(
+            Aop, Aop32, b_eff, x0, M_inv32, settings.solve_fn(), rtol, 0.0,
+            settings.inner_rtol, settings.max_it, settings.max_passes, _vdot,
+            run)
+        if res_h > rtol * bnorm_h:
+            x2, k2, res2, res2_h = _krylov(spec, Aop, b_eff, x, M_inv, rtol,
+                                           0.0, settings.max_it, _vdot, run)
             k += k2
-            if math.isfinite(float(res2)) and float(res2) < float(res):
+            if math.isfinite(res2_h) and res2_h < res_h:
                 x, res = x2, res2
         return x, k, res, b_eff_norm
 
     return solve_lin
 
 
-def _make_solve32(kern, settings: SolverSettings, apply_M,
+def _make_solve32(kern, settings: SolverSettings, apply_M, graphs,
                   zero_dirichlet: bool = False):
     """Build ``solve32(CT, b, x0, rtol, mask32, ubc32, P) -> (x, iters,
     res)`` for the f32 sweep: defect correction (at most 4 passes) on the
     f32 tangent ``CT`` (6, 6, E), with the residuals in f64 and the Krylov
     passes on the f32 operator.  A raw f32 BiCGStab can diverge on the
     Desai-coupled tangent; restarting each pass from an f64 residual cures
-    that for one f64 matvec per pass.  Returns f32 ``x`` and ``res``."""
-    solve = settings.solve_fn()
+    that for one f64 matvec per pass.  Returns f32 ``x`` and ``res``.  On
+    CUDA its blocks replay from ``graphs``, as the masked solver's do."""
+    run = graphs.runner("sweep")
+    bind = graphs.bind
 
     def solve32(CT, b, x0, rtol, mask32, ubc32, P):
-        mask64, ubc64 = mask32.to(F64), ubc32.to(F64)
-        mv64, planes64 = _f64_action(kern, CT.to(F64))
-        mv32 = _f32_action(kern, CT, planes64)
+        mask64 = bind("sweep.mask64", mask32.to(F64))
+        mask32 = bind("sweep.mask32", mask32)
+        ubc64 = ubc32.to(F64)
+        make64, data64, planes64 = _f64_action(kern, CT.to(F64))
+        mv64 = make64(bind("sweep.hi", data64))
+        make32, data32 = _f32_action(kern, CT, planes64)
+        mv32 = make32(bind("sweep.lo", data32))
 
         def Aop_hi(x):
             return mask64 * mv64(mask64 * x) + (1.0 - mask64) * x
@@ -398,9 +426,10 @@ def _make_solve32(kern, settings: SolverSettings, apply_M,
         else:
             b_eff = mask64 * (b64 - mv64(ubc64)) + (1.0 - mask64) * ubc64
         x, k, res = ir_solve(Aop_hi, Aop_lo, b_eff, x0.to(F64), M_inv,
-                             inner_solve=solve, rtol=rtol,
+                             inner_solve=settings.solve_fn(), rtol=rtol,
                              inner_rtol=settings.inner_rtol,
-                             inner_maxiter=settings.max_it, max_passes=4)
+                             inner_maxiter=settings.max_it, max_passes=4,
+                             run=run)
         return x.to(F32), k, res.to(F32)
 
     return solve32
@@ -427,19 +456,16 @@ _FROZEN = ("eps_old", "rate_old", "qsi_old", "zeta_old")
 
 
 def _step_error(kern, eps_new, eps_old, sv_new, w, trivial=False):
-    """(strain-change error, stress finite) of a fixed-point iteration,
-    over every rank's elements, in one reduction and one host read: the
-    error ||eps_new - eps_old||_w / ||eps_new||_w (0.0 when ``trivial``),
-    and whether every entry of ``sv_new`` is finite."""
+    """(strain-change error, count of non-finite stress entries), 0-dim
+    tensors over every rank's elements, in one reduction: the error
+    ||eps_new - eps_old||_w / ||eps_new||_w (0 when ``trivial``)."""
     n_bad = (~torch.isfinite(sv_new)).sum().to(eps_new.dtype)
     if trivial:
-        return 0.0, not bool(kern.global_sum(n_bad))
+        return torch.zeros_like(n_bad), kern.global_sum(n_bad)
     sums = kern.global_sum(torch.stack([
         (((eps_new - eps_old) ** 2) * w).sum(), ((eps_new ** 2) * w).sum(),
         n_bad]))
-    err, n_bad = torch.stack([torch.sqrt(sums[0]) / torch.sqrt(sums[1]),
-                              sums[2]]).tolist()
-    return err, n_bad == 0
+    return torch.sqrt(sums[0]) / torch.sqrt(sums[1]), sums[2]
 
 
 def _to(state, dtype):
@@ -643,8 +669,16 @@ class LinearMomentum(LinearMomentumBase):
             self.kernel.enable_band()
 
     def _reset_solvers(self):
+        """Drop the linear solvers and the captured graphs (the
+        preconditioner, backend or kernel they referenced changed).  The
+        parallel layer's equations run uncaptured."""
         self._solve_lin = None
         self._solve32 = None
+        if getattr(self, "graphs", None) is not None:
+            self.graphs.clear()
+        self.graphs = Graphs(
+            self.device, counters=lambda: (self.kernel.band, self.kernel.dia),
+            enabled=self._halo is None and type(self.kernel) is MomentumKernel)
 
     def enable_band_matvec(self):
         """Route the f32 Krylov stiffness action through the band kernel
@@ -672,6 +706,7 @@ class LinearMomentum(LinearMomentumBase):
 
     def initialize(self):
         self.C = self.mat.C
+        self.graphs.clear()      # they captured the old material's tensors
 
     def set_solver(self, solver):
         super().set_solver(solver)
@@ -747,7 +782,7 @@ class LinearMomentum(LinearMomentumBase):
                     self._halo, self.solver, apply_M, zero_dirichlet=zero_dir)
             else:
                 self._solve_lin = _make_masked_solver(
-                    self.kernel, self.solver, apply_M,
+                    self.kernel, self.solver, apply_M, self.graphs,
                     zero_dirichlet=zero_dir)
         return self._solve_lin
 
@@ -761,7 +796,7 @@ class LinearMomentum(LinearMomentumBase):
                     self._halo, self.solver, apply_M, zero_dirichlet=zero_dir)
             else:
                 self._solve32 = _make_solve32(
-                    self.kernel, self.solver, apply_M,
+                    self.kernel, self.solver, apply_M, self.graphs,
                     zero_dirichlet=zero_dir)
         return self._solve32
 
@@ -791,6 +826,86 @@ class LinearMomentum(LinearMomentumBase):
         self.u = self._linear_solve(self.mat.CT, b)
         self.run_after_solve()
 
+    # -- one fixed-point iteration's three pieces, each a graph on CUDA --- #
+    def _tangent(self, states, sv_k, Temp, dt):
+        """The tangent suite about ``sv_k``: (states, G (6, 6, E), CT
+        (6, 6, E), B), in the dtype of ``sv_k``."""
+        mat, kern, theta = self.mat, self.kernel, self.theta
+
+        def suite(states, sv_k, Temp):
+            new_states, G, B6 = mat.f_tangent_all(states, sv_k, Temp, dt,
+                                                  theta)
+            return (new_states, kern.prep(G),
+                    kern.prep(mat.f_CT(G, dt, theta)), B6)
+
+        return self.graphs(("tangent", float(dt), theta), suite, states, sv_k,
+                           Temp)
+
+    def _rhs(self, states, G_p, B6, CT, sv_lin, eps_th, b_ext, u, mask,
+             u_bc, dt):
+        """(states with their theta-scheme predictors, eps_rhs, the
+        right-hand side b, the Krylov guess x0) of a linearization about
+        ``sv_lin``."""
+        kern, elems_ne = self.kernel, list(self.mat.elems_ne)
+        phi1, phi2 = dt * self.theta, dt * (1 - self.theta)
+
+        def rhs(states, G_p, B6, CT, sv_lin, eps_th, b_ext, u, mask, u_bc):
+            eps_ne_k = torch.zeros_like(sv_lin)
+            states2 = []
+            for e, st in zip(elems_ne, states):
+                st = e.f_eps_k(st, phi1, phi2)
+                eps_ne_k = eps_ne_k + st["eps_k"]
+                states2.append(st)
+            G_sk = kern.apply66(G_p, sv_lin)
+            if eps_th is not None:
+                eps_ne_k = eps_ne_k + eps_th
+            eps_rhs = eps_ne_k - phi2 * (B6 + G_sk)
+            b = b_ext + kern.internal_force(kern.apply66(CT, eps_rhs))
+            return states2, eps_rhs, b, mask * u + (1.0 - mask) * u_bc
+
+        return self.graphs(("rhs", float(dt), self.theta), rhs, states, G_p,
+                           B6, CT, sv_lin, eps_th, b_ext, u, mask, u_bc)
+
+    def _update(self, u_new, CT, eps_rhs, states, sv_lin, Temp, eps_old, w,
+                res, bnorm, dt, guard=None, trivial=False):
+        """Strain, stress, internal-variable increment and rates of a solve's
+        ``u_new``, and the packed statistics the host reads once per
+        fixed-point iteration: f64 [error, non-finite stress entries,
+        ``res``, ``bnorm``, |u_new|^2, max|stress|].  ``guard`` = (x0, b)
+        (the f32 sweep) replaces a ``u_new`` that is not finite or did not
+        halve the residual by ``x0``, ``bnorm`` then being ||b||.
+        Returns (u_new, eps_new, sv_new, states, stats)."""
+        kern, elems_ne = self.kernel, list(self.mat.elems_ne)
+        phi1 = dt * self.theta
+
+        def update(u_new, CT, eps_rhs, states, sv_lin, Temp, eps_old, w, res,
+                   bnorm, guard):
+            if guard is not None:
+                x0, b = guard
+                bnorm = torch.sqrt(torch.dot(b.reshape(-1), b.reshape(-1)))
+                u_ok = (torch.isfinite(torch.dot(u_new.reshape(-1),
+                                                 u_new.reshape(-1)))
+                        & torch.isfinite(res) & (res < 0.5 * bnorm))
+                u_new = torch.where(u_ok, u_new, x0)
+            eps_new = kern.strain(u_new)
+            sv_new = kern.apply66(CT, eps_new - eps_rhs)
+            states3 = []
+            for e, st in zip(elems_ne, states):
+                st = e.f_increment_isv(st, sv_new, sv_lin, dt)
+                st = e.f_rate(st, sv_new, phi1, Temp)
+                states3.append(st)
+            err, n_bad = _step_error(kern, eps_new, eps_old, sv_new, w,
+                                     trivial)
+            uu = torch.dot(u_new.reshape(-1), u_new.reshape(-1))
+            sv_max = kern.global_max(sv_new.abs().max())
+            stats = torch.stack([v.to(F64) for v in (err, n_bad, res, bnorm,
+                                                     uu, sv_max)])
+            return u_new, eps_new, sv_new, states3, stats
+
+        return self.graphs(("update", float(dt), self.theta, trivial), update,
+                           u_new, CT, eps_rhs, states, sv_lin, Temp, eps_old,
+                           w, res, bnorm, guard)
+
     # ------------------------------------------------------------------ #
     def _fp32_sweep(self, states, sv, eps_v, u, b_ext, mask, u_bc, eps_th,
                     dt, maxiter, P):
@@ -808,20 +923,18 @@ class LinearMomentum(LinearMomentumBase):
         accepts the sweep only if its error reached ``fp32_switch``, every
         value is finite, |sigma| < 1e9 Pa, |eps| < 0.5 and no hardening
         variable moved more than 30 % from its entry value; otherwise the
-        f64 phase starts from the entry state.  Host syncs: two per sweep
-        iteration besides the Krylov loops', and one for the gate.
+        f64 phase starts from the entry state.  Host reads: one per sweep
+        iteration besides the Krylov blocks', and one for the gate.
 
         Returns (states, sv, eps_v, u, iterations, err, krylov_total,
         krylov_last), iterations 0 and err 1.0 for a rejected sweep."""
-        mat, kern, theta = self.mat, self.kernel, self.theta
-        elems_ne = list(mat.elems_ne)
+        kern = self.kernel
         switch = self.solver.fp32_switch
         solve32 = self._get_solve32()
         b32, mask32, ubc32 = b_ext.to(F32), mask.to(F32), u_bc.to(F32)
         Temp32 = self.Temp.to(F32)
         eps_th32 = None if eps_th is None else eps_th.to(F32)
         dt = float(np.float32(dt))
-        phi1, phi2 = dt * theta, dt * (1 - theta)
         st32 = [_to(st, F32) for st in states]
         sv32, eps32, u32 = sv.to(F32), eps_v.to(F32), u.to(F32)
         w = voigt_weight(sv32)
@@ -830,39 +943,18 @@ class LinearMomentum(LinearMomentumBase):
         while (err > switch and ite < min(maxiter - 2, 6)
                and math.isfinite(err) and prog):
             err_prev, sv_k = err, sv32
-            new_states, G, B6 = mat.f_tangent_all(st32, sv_k, Temp32, dt,
-                                                  theta)
-            CT = kern.prep(mat.f_CT(G, dt, theta))
-            eps_ne_k = torch.zeros_like(sv32)
-            states2 = []
-            for e, st in zip(elems_ne, new_states):
-                st = e.f_eps_k(st, phi1, phi2)
-                eps_ne_k = eps_ne_k + st["eps_k"]
-                states2.append(st)
-            if eps_th32 is not None:
-                eps_ne_k = eps_ne_k + eps_th32
-            eps_rhs = eps_ne_k - phi2 * (B6 + kern.apply66(kern.prep(G),
-                                                           sv_k))
-            b = b32 + kern.internal_force(kern.apply66(CT, eps_rhs))
-            x0 = mask32 * u32 + (1.0 - mask32) * ubc32
+            new_states, G_p, CT, B6 = self._tangent(st32, sv_k, Temp32, dt)
+            states2, eps_rhs, b, x0 = self._rhs(
+                new_states, G_p, B6, CT, sv_k, eps_th32, b32, u32, mask32,
+                ubc32, dt)
             lin_rtol = min(max(0.05 * err_prev, 1e-6), 1e-2)
             u_new, kry, lin_res = solve32(CT, b, x0, lin_rtol, mask32, ubc32,
                                           P)
-            b_norm = torch.sqrt(torch.dot(b.reshape(-1), b.reshape(-1)))
-            u_ok = (torch.isfinite(torch.dot(u_new.reshape(-1),
-                                             u_new.reshape(-1)))
-                    & torch.isfinite(lin_res) & (lin_res < 0.5 * b_norm))
-            if not bool(u_ok):
-                u_new = x0
-            eps_new = kern.strain(u_new)
-            sv_new = kern.apply66(CT, eps_new - eps_rhs)
-            states3 = []
-            for e, st in zip(elems_ne, states2):
-                st = e.f_increment_isv(st, sv_new, sv_k, dt)
-                st = e.f_rate(st, sv_new, phi1, Temp32)
-                states3.append(st)
-            err, finite = _step_error(kern, eps_new, eps32, sv_new, w)
-            err = err if finite else math.inf
+            u_new, eps_new, sv_new, states3, stats = self._update(
+                u_new, CT, eps_rhs, states2, sv_k, Temp32, eps32, w, lin_res,
+                None, dt, guard=(x0, b))
+            err, n_bad = stats.tolist()[:2]
+            err = err if n_bad == 0 else math.inf
             prog = err < 0.5 * err_prev
             kry_tot += kry
             st32, sv32, eps32, u32 = states3, sv_new, eps_new, u_new
@@ -902,6 +994,11 @@ class LinearMomentum(LinearMomentumBase):
         the step's thermal strain (:meth:`compute_eps_th`), constant over
         the iteration.
 
+        On CUDA an iteration is three graph replays (:meth:`_tangent`,
+        :meth:`_rhs`, :meth:`_update`) around the linear solve's Krylov
+        blocks; the host reads the update's packed statistics once per
+        iteration and makes every decision below from them.
+
         By default every iteration rebuilds the tangent suite and solves at
         ``rtol``.  With ``lag_tangent`` or ``adaptive_rtol``
         (:class:`SolverSettings`) an iteration may reuse the suite of the
@@ -921,9 +1018,8 @@ class LinearMomentum(LinearMomentumBase):
 
         Returns (states, sv, eps_v, u, sv_k, iterations, err,
         (krylov_total, krylov_last, lin_res, tangent_builds, rollbacks))."""
-        mat, kern, theta = self.mat, self.kernel, self.theta
-        elems_ne = list(mat.elems_ne)
-        trivial_error = theta == 1.0 or not elems_ne
+        kern, theta = self.kernel, self.theta
+        trivial_error = theta == 1.0 or not self.mat.elems_ne
         adaptive = self.solver.adaptive_rtol and not trivial_error
         lag = (self.solver.lag_tangent and not self.solver.adaptive_rtol
                and not trivial_error)
@@ -931,11 +1027,10 @@ class LinearMomentum(LinearMomentumBase):
         P, _ = self._get_precond()
         solve_lin = self._get_solver()
         w = voigt_weight(sv)
-        free = 1.0 - mask
-        phi1, phi2 = dt * theta, dt * (1 - theta)
 
         # the entry snapshot shares its tensors with the live state: every
-        # update below makes new tensors, none writes in place
+        # update below makes new tensors (a graph's outputs are clones),
+        # none writes in place
         entry = (states, sv, eps_v, u)
         sv_scale = float(kern.global_max(sv.abs().max())) if adaptive \
             else 0.0
@@ -966,29 +1061,21 @@ class LinearMomentum(LinearMomentumBase):
             else:
                 rebuild = True
             if rebuild:
-                new_states, G, B6 = mat.f_tangent_all(states, sv_k,
-                                                      self.Temp, dt, theta)
-                G_p = kern.prep(G)
-                CT = kern.prep(mat.f_CT(G, dt, theta))
+                new_states, G_p, CT, B6 = self._tangent(states, sv_k,
+                                                        self.Temp, dt)
                 sv_lin = sv_k
                 builds += 1
             else:
                 new_states = states
-            eps_ne_k = torch.zeros_like(sv)
-            states2 = []
-            for e, st in zip(elems_ne, new_states):
-                st = e.f_eps_k(st, phi1, phi2)
-                eps_ne_k = eps_ne_k + st["eps_k"]
-                states2.append(st)
-            G_sk = kern.apply66(G_p, sv_lin)
-            if eps_th is not None:
-                eps_ne_k = eps_ne_k + eps_th
-            eps_rhs = eps_ne_k - phi2 * (B6 + G_sk)
-            b = b_ext + kern.internal_force(kern.apply66(CT, eps_rhs))
-            x0 = mask * u + free * u_bc
+            states2, eps_rhs, b, x0 = self._rhs(
+                new_states, G_p, B6, CT, sv_lin, eps_th, b_ext, u, mask, u_bc,
+                dt)
             u_new, kry, res_t, bnorm_t = solve_lin(CT, b, mask, u_bc, x0,
                                                    lin_rtol, P)
-            lin_res, lin_bnorm = float(res_t), float(bnorm_t)
+            u_new, eps_new, sv_new, states3, stats = self._update(
+                u_new, CT, eps_rhs, states2, sv_lin, self.Temp, eps_v, w,
+                res_t, bnorm_t, dt, trivial=trivial_error)
+            err, n_bad, lin_res, lin_bnorm, uu, sv_max = stats.tolist()
             # solve acceptance: a diverged solve, or a tight one stalled
             # more than 4 decades above its target, fails the step (err=inf
             # -> dt-retry); a loose one gets one decade and the rollback
@@ -996,24 +1083,11 @@ class LinearMomentum(LinearMomentumBase):
             stalled = not rel_res <= (1e4 if tight else 10.0) * lin_rtol
             solve_ok = (math.isfinite(lin_res)
                         and lin_res <= 10.0 * lin_bnorm + 1e-30
-                        and not (tight and stalled)
-                        and math.isfinite(float(torch.dot(
-                            u_new.reshape(-1), u_new.reshape(-1)))))
-            eps_new = kern.strain(u_new)
-            sv_new = kern.apply66(CT, eps_new - eps_rhs)
-            states3 = []
-            for e, st in zip(elems_ne, states2):
-                st = e.f_increment_isv(st, sv_new, sv_lin, dt)
-                st = e.f_rate(st, sv_new, phi1, self.Temp)
-                states3.append(st)
-            err, finite = _step_error(kern, eps_new, eps_v, sv_new, w,
-                                      trivial_error)
-            if not (solve_ok and finite):
+                        and not (tight and stalled) and math.isfinite(uu))
+            if not (solve_ok and n_bad == 0):
                 err = math.inf
-            bad = not tight and (
-                stalled or not math.isfinite(err)
-                or float(kern.global_max(sv_new.abs().max()))
-                > 3.0 * sv_scale + 1e7)
+            bad = not tight and (stalled or not math.isfinite(err)
+                                 or sv_max > 3.0 * sv_scale + 1e7)
             if bad:
                 states3, sv_new, eps_new, u_new = entry
                 sv_k, err = entry[1], 1.0

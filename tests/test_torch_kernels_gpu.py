@@ -9,6 +9,15 @@ Each kernel against its plain twin on a random energy-symmetric tangent
 order), bitwise repeatable, energy-symmetric (v.Au = u.Av), one counted
 launch per call, and a refusal of a tensor it cannot take.
 
+The captured graphs of one fixed-point iteration on the cavern600 main path
+(phase 4's equation: band kernel, dense preconditioner): the tangent suite,
+the Krylov blocks of a linear solve and the update, each captured, then
+replayed under ``torch.cuda.set_sync_debug_mode("error")`` (a host sync in
+a replay raises), and held bit for bit against the same function under
+``graphs.eager()``; every call is one replay, and the band kernel's counter
+counts the launches of the replayed blocks as the eager solve counts its
+own.
+
 The file imports no JAX, so it runs on the machine with the card:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
@@ -22,10 +31,12 @@ import torch
 
 import safeincave_torch as st
 import torch_port_configs as cfg
+from safeincave_torch.fem import graphs
 from safeincave_torch.fem.bandkernel import BandMatvec, band_matvec_plain
 from safeincave_torch.fem.dia import BlockDIA, dia_matvec_plain
 from safeincave_torch.fem.kernels import MomentumKernel
 from safeincave_torch.mesh.reorder import reordered_grid
+from safeincave_torch.utils import voigt_weight
 
 
 @pytest.fixture
@@ -111,3 +122,130 @@ def test_dia_kernel(cuda, nx, dtype, tol):
         op(u.to(other))
     with pytest.raises(ValueError):
         dia.operator(vals[:, 1:])                  # not the padded layout
+
+
+# -- the captured graphs of a fixed-point iteration at cavern600 ------------- #
+@pytest.fixture(scope="module")
+def cavern600():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU, see the module "
+                    "docstring)")
+    eq = cfg.wire_bench(st, cfg.cavern600_grid(st), precond="auto",
+                        device="cuda")
+    cfg.elastic_init(eq)
+    return eq
+
+
+def _leaves(x):
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, dict):
+        x = list(x.values())
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in _leaves(v)]
+    return [x]
+
+
+def _same(got, want):
+    got, want = _leaves(got), _leaves(want)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        if isinstance(w, torch.Tensor):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+        else:
+            assert g == w
+
+
+def _strict(eq, call):
+    """``call()`` (a replay) with host syncs raising; one replay more."""
+    n = eq.graphs.replays
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = call()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert eq.graphs.replays == n + 1
+    return out
+
+
+def _iteration(eq):
+    """The arguments of one fixed-point iteration's pieces."""
+    b_ext, mask, u_bc = eq._step_inputs(cfg.HOUR)
+    states = [e.state for e in eq.mat.elems_ne]
+    sv = eq.sig_v
+    tangent = (states, sv, eq.Temp, cfg.HOUR)
+    new_states, G_p, CT, B6 = eq._tangent(*tangent)
+    states2, eps_rhs, b, x0 = eq._rhs(new_states, G_p, B6, CT, sv, None,
+                                      b_ext, eq.u, mask, u_bc, cfg.HOUR)
+    return dict(tangent=tangent, CT=CT, b=b, mask=mask, u_bc=u_bc, x0=x0,
+                eps_rhs=eps_rhs, states2=states2, sv=sv)
+
+
+@pytest.mark.gpu
+def test_tangent_suite_graph(cavern600):
+    eq = cavern600
+    args = _iteration(eq)["tangent"]
+    with graphs.eager():
+        want = eq._tangent(*args)
+    _same(eq._tangent(*args), want)
+    _same(_strict(eq, lambda: eq._tangent(*args)), want)
+
+
+@pytest.mark.gpu
+def test_krylov_block_graph(cavern600):
+    eq = cavern600
+    it = _iteration(eq)
+    P, _ = eq._get_precond()
+    band = eq.kernel.band
+
+    def solve():
+        n = band.launches
+        x, k, res, bnorm = eq._get_solver()(it["CT"], it["b"], it["mask"],
+                                            it["u_bc"], it["x0"], 1e-12, P)
+        torch.cuda.synchronize()
+        return (x, k, res, bnorm), band.launches - n
+
+    with graphs.eager():
+        want, launches = solve()
+    assert want[1] > 0 and launches > 0
+    got, n_first = solve()                  # captures, then replays
+    _same(got, want)
+    assert n_first == launches
+    step = eq.graphs.step
+    replays = [0]
+
+    def strict_step(*a):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return step(*a)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            replays[0] += 1
+
+    eq.graphs.step = strict_step
+    try:
+        n = eq.graphs.replays
+        got, n_replayed = solve()
+    finally:
+        del eq.graphs.step
+    _same(got, want)
+    assert n_replayed == launches
+    assert eq.graphs.replays - n == replays[0] > 0
+
+
+@pytest.mark.gpu
+def test_update_graph(cavern600):
+    eq = cavern600
+    it = _iteration(eq)
+    P, _ = eq._get_precond()
+    u_new, _, res, bnorm = eq._get_solver()(it["CT"], it["b"], it["mask"],
+                                            it["u_bc"], it["x0"], 1e-12, P)
+    args = (u_new, it["CT"], it["eps_rhs"], it["states2"], it["sv"], eq.Temp,
+            eq.eps_tot_v, voigt_weight(it["sv"]), res, bnorm, cfg.HOUR)
+    with graphs.eager():
+        want = eq._update(*args)
+    _same(eq._update(*args), want)
+    got = _strict(eq, lambda: eq._update(*args))
+    _same(got, want)
+    assert got[0] is u_new                  # an input passed through
+    assert torch.isfinite(got[4]).all()

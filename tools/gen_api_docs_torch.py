@@ -41,6 +41,8 @@ PORT_ONLY = {
                       "through numpy",
     f"{PKG}.output.hdf5": "the HDF5 writer and reader that SaveFields uses "
                           "in place of h5py",
+    f"{PKG}.fem.graphs": "captured CUDA graphs of the time step's pieces, "
+                         "the counterpart of jax.jit",
     f"{PKG}.parallel.dist": "one rank per card over torch.distributed",
     f"{PKG}.csrc": "the hand-written CUDA kernels",
 }
