@@ -1,0 +1,8 @@
+"""krylov_it_per_step: Krylov iterations per converged step, from the
+statistics the step calls return (the f32 sweep's solves included)."""
+
+
+def read(run):
+    eps = run["episodes"]
+    steps = sum(e["steps"] for e in eps)
+    return sum(e["krylov"] for e in eps) / steps if steps else None
