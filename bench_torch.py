@@ -57,7 +57,7 @@ import torch
 import safeincave_torch as sc
 from safeincave_torch.checkpoint import load_checkpoint, save_checkpoint
 from safeincave_torch.fem.dia import BlockDIA
-from safeincave_torch.fem.graphs import counting_reads
+from safeincave_torch import tracing
 from safeincave_torch.fem.kernels import MomentumKernel
 from safeincave_torch.utils import find_grid
 
@@ -391,14 +391,15 @@ def headline(eq, steps=20, repeats=5):
             before = launches_of(eq.kernel)
             sync(device)
             t0 = time.perf_counter()
-            with counting_reads() as reads:
-                rows, retries = run_chunk(eq, window)
-                sync(device)
+            reads = tracing.count_of("read")
+            rows, retries = run_chunk(eq, window)
+            sync(device)
             secs = time.perf_counter() - t0
+            reads = tracing.count_of("read") - reads
             got = moved("headline", eq, before)
             runs.append({"s_per_step": secs / steps, "rows": rows,
                          "retries": retries, "launches": got,
-                         "reads": reads[0]})
+                         "reads": reads})
             log(f"repeat {r + 1}/{repeats}: {secs:.3f}s "
                 f"({1e3 * secs / steps:.1f} ms/step, {retries} f64 retries)")
     first = runs[0]
@@ -874,18 +875,19 @@ def bench_hostsync(eq, n_steps=20):
     eq.commit_time_step(DT)
     iters_total = kry_total = 0
     t0 = time.perf_counter()
-    with counting_reads() as reads:
-        for k in range(n_steps):
-            ite, err = eq.solve_time_step(t_base + (k + 1) * DT, DT,
-                                          tol=1e-8, maxiter=40)
-            if not err <= 1e-8:
-                raise RuntimeError(f"host-sync step {k + 1} did not "
-                                   f"converge: err={err:.3e}")
-            iters_total += ite
-            kry_total += eq.krylov_total
-            eq.commit_time_step(DT)
-        sync(device)
+    reads = tracing.count_of("read")
+    for k in range(n_steps):
+        ite, err = eq.solve_time_step(t_base + (k + 1) * DT, DT,
+                                      tol=1e-8, maxiter=40)
+        if not err <= 1e-8:
+            raise RuntimeError(f"host-sync step {k + 1} did not "
+                               f"converge: err={err:.3e}")
+        iters_total += ite
+        kry_total += eq.krylov_total
+        eq.commit_time_step(DT)
+    sync(device)
     elapsed = time.perf_counter() - t0
+    reads = tracing.count_of("read") - reads
     launched = moved("hostsync", eq, before)
     log(f"{n_steps} steps (per-step host sync): {elapsed:.3f}s "
         f"({elapsed / n_steps * 1e3:.1f} ms/step, "
@@ -893,9 +895,9 @@ def bench_hostsync(eq, n_steps=20):
         f"{kry_total / n_steps:.1f} krylov-iters/step"
         f"{launch_text(launched, n_steps + 1)}), final err={err:.2e}, "
         f"last-solve res={eq.solver_stats[1]:.2e}, "
-        f"{reads[0] / n_steps:.1f} host reads/step")
+        f"{reads / n_steps:.1f} host reads/step")
     return {"ms_per_step": 1e3 * elapsed / n_steps, "launches": launched,
-            "host_reads_per_step": reads[0] / n_steps}
+            "host_reads_per_step": reads / n_steps}
 
 
 # --------------------------------------------------------------------------- #

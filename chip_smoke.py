@@ -3087,24 +3087,25 @@ def graph_chunk(eq, mode, clock, t_first, n):
     ``graphs.eager()``: rows, ms/step, ms per tangent build and per linear
     solve, host reads, graph replays and hand-kernel launches per step."""
     import torch
-    from safeincave_torch.fem import graphs
+    from safeincave_torch import tracing
     kern = eq.kernel.band if eq.kernel.band is not None else eq.kernel.dia
     launches, replays = kern.launches, eq.graphs.replays
     clock.take()
     with mode_ctx(mode):
         torch.cuda.synchronize()
-        with graphs.counting_reads() as reads:
-            t0 = time.perf_counter()
-            rows = eq.solve_time_steps([t_first + k * HOUR for k in range(n)],
-                                       [HOUR] * n, tol=1e-8, maxiter=40)
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
+        reads = tracing.count_of("read")
+        t0 = time.perf_counter()
+        rows = eq.solve_time_steps([t_first + k * HOUR for k in range(n)],
+                                   [HOUR] * n, tol=1e-8, maxiter=40)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        reads = tracing.count_of("read") - reads
     spans = clock.take()
     if not (rows[:, 5] == 1).all():
         raise AssertionError(f"graphs {mode}: non-converged steps "
                              f"{rows[:, [0, 1, 5]]}")
     per = lambda k: spans[k][0] / max(spans[k][1], 1)  # noqa: E731
-    return dict(rows=rows, ms=1e3 * secs / n, reads=reads[0] / n,
+    return dict(rows=rows, ms=1e3 * secs / n, reads=reads / n,
                 replays=(eq.graphs.replays - replays) / n,
                 launches=(kern.launches - launches) / n,
                 launches_total=kern.launches - launches,

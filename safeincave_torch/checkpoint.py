@@ -23,6 +23,7 @@ import os
 import numpy as np
 import torch
 
+from . import tracing
 from .utils import (is_main_process, pad_elem_array, to_numpy as _np,
                     unpad_elems)
 
@@ -30,7 +31,14 @@ from .utils import (is_main_process, pad_elem_array, to_numpy as _np,
 def save_checkpoint(path: str, eq, t_control=None, heat_eq=None,
                     extra: dict | None = None):
     """Serialize the full simulation state to ``path`` (.npz); in a
-    multi-card run every rank calls it and rank 0 writes."""
+    multi-card run every rank calls it and rank 0 writes.  A
+    ``checkpoint`` span of :mod:`~safeincave_torch.tracing`."""
+    tracing.begin(tracing.CHECKPOINT)
+    _save(path, eq, t_control, heat_eq, extra)
+    tracing.end(tracing.CHECKPOINT)
+
+
+def _save(path, eq, t_control, heat_eq, extra):
     def unpad(x):
         return unpad_elems(eq, x)
 

@@ -17,6 +17,7 @@ import ctypes
 import numpy as np
 import torch
 
+from .. import tracing
 from .kernels import (F32, ScatterPlan, forces_stacked, gather_u, scatter,
                       strain_stacked)
 
@@ -106,8 +107,9 @@ class BandMatvec:
     """f32 stiffness action for one mesh, on the kernel's device.
 
     ``launches`` counts kernel launches (one per application of an
-    :meth:`operator` on CUDA).  Applications share one partial-sum buffer,
-    so they run in the order of one stream."""
+    :meth:`operator` on CUDA; each launch is an enqueue that ends a gap of
+    :mod:`~safeincave_torch.tracing`).  Applications share one partial-sum
+    buffer, so they run in the order of one stream."""
 
     def __init__(self, kern):
         self.n_nodes = kern.n_nodes
@@ -190,6 +192,7 @@ class BandMatvec:
             f = torch.empty((N, 3), dtype=F32, device=dev)
             check(fn(plan, ctv.data_ptr(), u.data_ptr(), f.data_ptr(),
                      stream()))
+            tracing.enqueue()
             self.launches += 1
             return f
 

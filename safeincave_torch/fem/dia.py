@@ -35,6 +35,7 @@ import ctypes
 import numpy as np
 import torch
 
+from .. import tracing
 from .blockell import element_block_comp_rows, element_block_rows
 from .kernels import F32, F64, ScatterPlan, segment_sum
 
@@ -188,7 +189,8 @@ class BlockDIA:
     """Assembled offset operator for one mesh, on the kernel's device.
 
     ``launches`` counts CUDA kernel launches (one per application of an
-    :meth:`operator` on CUDA tensors)."""
+    :meth:`operator` on CUDA tensors; each launch is an enqueue that ends a
+    gap of :mod:`~safeincave_torch.tracing`)."""
 
     def __init__(self, kern, max_offsets: int = MAX_OFFSETS,
                  min_fill: float = 0.4):
@@ -310,6 +312,7 @@ class BlockDIA:
             y = torch.empty((N, 3), dtype=dtype, device=dev)
             check(fn(params, vals.data_ptr(), u.data_ptr(), y.data_ptr(),
                      stream()))
+            tracing.enqueue()
             self.launches += 1
             return y
 

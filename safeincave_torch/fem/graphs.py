@@ -42,7 +42,11 @@ On a CPU device, inside :func:`eager`, and for a :class:`Graphs` made with
 ``enabled=False`` (the parallel layer's equations) the function is called
 directly.  :func:`eager` is the counterpart of ``jax.disable_jit``: the same
 functions, uncaptured, on the card, for tests and chip_smoke.py.
-:func:`counting_reads` counts the host reads of tensors inside a block.
+
+A replay is a ``replay`` span of :mod:`~safeincave_torch.tracing` (its
+launch is an enqueue, which ends a gap), a capture a ``capture`` span;
+``replays`` and ``captures`` count them, and each run record lists the
+keys captured in it.
 """
 from __future__ import annotations
 
@@ -50,6 +54,8 @@ import contextlib
 from collections import OrderedDict
 
 import torch
+
+from .. import tracing
 
 _eager_depth = [0]
 _MAX_GRAPHS = 32        # least recently used graphs beyond this are dropped
@@ -64,37 +70,6 @@ def eager():
         yield
     finally:
         _eager_depth[0] -= 1
-
-
-_READS = ("item", "tolist", "__float__", "__int__", "__bool__")
-
-
-@contextlib.contextmanager
-def counting_reads():
-    """Count the host reads of tensors (``item``, ``tolist``, ``float``,
-    ``int``, ``bool``; a read made inside another counts once) while the
-    block runs, on any device.  Yields a one-element list holding the
-    count."""
-    n, depth = [0], [0]
-    saved = {name: getattr(torch.Tensor, name) for name in _READS}
-
-    def counted(f):
-        def read(self, *args, **kw):
-            n[0] += depth[0] == 0
-            depth[0] += 1
-            try:
-                return f(self, *args, **kw)
-            finally:
-                depth[0] -= 1
-        return read
-
-    for name, f in saved.items():
-        setattr(torch.Tensor, name, counted(f))
-    try:
-        yield n
-    finally:
-        for name, f in saved.items():
-            setattr(torch.Tensor, name, f)
 
 
 def _flatten(x, leaves):
@@ -139,13 +114,14 @@ class _Graph:
 
 class Graphs:
     """The captured graphs of one equation on ``device``, sharing one
-    memory pool.  ``replays`` counts graph launches."""
+    memory pool.  ``replays`` counts graph launches, ``captures`` graphs
+    captured."""
 
     def __init__(self, device, counters=lambda: (), enabled=True):
         self.device = torch.device(device)
         self.counters = counters
         self.enabled = enabled
-        self.replays = 0
+        self.replays = self.captures = 0
         self._graphs: OrderedDict = OrderedDict()
         self._bound: dict = {}
         self._pool = self._stream = None
@@ -241,7 +217,11 @@ class Graphs:
     def _get(self, full_key, leaves, fn):
         g = self._graphs.get(full_key)
         if g is None:
+            tracing.begin(tracing.CAPTURE)
             g = self._capture(fn, leaves)
+            tracing.end(tracing.CAPTURE)
+            self.captures += 1
+            tracing.captured(full_key[:2])
             self._graphs[full_key] = g
             while len(self._graphs) > _MAX_GRAPHS:
                 self._graphs.popitem(last=False)
@@ -284,12 +264,14 @@ class Graphs:
         return _Graph(graph, static, out_leaves, out_sig, through, deltas)
 
     def _replay(self, g, leaves):
+        tracing.begin(tracing.REPLAY)
         for i, (s, t) in enumerate(zip(g.static, leaves)):
             if t is s or (g.last[i] is t and g.version[i] == t._version):
                 continue
             s.copy_(t)
             g.last[i], g.version[i] = t, t._version
         g.graph.replay()
+        tracing.replay_end()
         self.replays += 1
         for o, n in g.deltas:
             o.launches += n

@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import tracing
 from .._device import default_device
 from .kernels import F64, HeatKernel
 from .momentum import SolverSettings
@@ -113,7 +114,7 @@ class HeatDiffusion:
         """Assemble and solve one implicit step; T and T_old both become
         the new field."""
         x, iters, res = self.step(self.T, self.T_old, t, dt)
-        self.solver_stats = (int(iters), float(res))
+        self.solver_stats = (int(iters), float(tracing.read(res)))
         self.T = x
         self.update_T_old()
 

@@ -44,6 +44,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import tracing
 from .._device import default_device
 from ..linalg import inv3x3
 from ..materials.base import _as_voigt, apply66
@@ -642,7 +643,9 @@ class LinearMomentum(LinearMomentumBase):
     operator.  A kernel that fails to build or launch raises.
 
     ``fp32_accepted`` counts the steps whose f32 sweep the health gate
-    accepted.
+    accepted; ``fp_iterations_total``, ``krylov_iterations_total``,
+    ``tangent_builds_total`` and ``rollbacks_total`` run over every step
+    since the wiring (:meth:`counters` gathers them).
     """
 
     def __init__(self, grid, theta: float, auto_backend: bool = True,
@@ -658,7 +661,7 @@ class LinearMomentum(LinearMomentumBase):
         # and running totals over every step since the wiring
         self.tangent_builds = self.rollbacks = 0
         self.tangent_builds_total = self.rollbacks_total = 0
-        self.fp_iterations_total = 0
+        self.fp_iterations_total = self.krylov_iterations_total = 0
         backend = select_backend(grid, self.device) if auto_backend else None
         if backend == "dia":
             try:
@@ -667,6 +670,23 @@ class LinearMomentum(LinearMomentumBase):
                 pass    # not offset-structured: keep the cumsum operator
         elif backend == "band":
             self.kernel.enable_band()
+
+    def counters(self):
+        """The running counts whose deltas a run record keeps
+        (:mod:`~safeincave_torch.tracing`): graph replays and captures,
+        hand-kernel launches, fixed-point and Krylov iterations, tangent
+        builds, rollbacks and accepted float32 sweeps."""
+        kern = self.kernel
+        band, dia = getattr(kern, "band", None), getattr(kern, "dia", None)
+        return {"replays": self.graphs.replays,
+                "captures": self.graphs.captures,
+                "band_launches": band.launches if band is not None else 0,
+                "dia_launches": dia.launches if dia is not None else 0,
+                "fp_iterations": self.fp_iterations_total,
+                "krylov_iterations": self.krylov_iterations_total,
+                "tangent_builds": self.tangent_builds_total,
+                "rollbacks": self.rollbacks_total,
+                "fp32_accepted": self.fp32_accepted}
 
     def _reset_solvers(self):
         """Drop the linear solvers and the captured graphs (the
@@ -758,6 +778,7 @@ class LinearMomentum(LinearMomentumBase):
         if self._precond is None:
             if not hasattr(self.bc, "mask"):
                 self.bc.update_dirichlet(0.0)
+            tracing.begin(tracing.PRECOND)
             if self._halo is not None:
                 from ..parallel.halo import halo_block_jacobi, halo_two_level
                 if self.solver.precond == "jacobi":
@@ -770,6 +791,9 @@ class LinearMomentum(LinearMomentumBase):
             else:
                 self._precond = build_preconditioner(
                     self.kernel, self.mat.C, self.bc.mask, self.solver)
+            if tracing.enabled() and self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            tracing.end(tracing.PRECOND)
         return self._precond
 
     def _get_solver(self):
@@ -807,7 +831,7 @@ class LinearMomentum(LinearMomentumBase):
         P, _ = self._get_precond()
         x, iters, res, _ = self._get_solver()(CT, b, mask, u_bc, x0,
                                               self.solver.rtol, P)
-        self.solver_stats = (iters, float(res))
+        self.solver_stats = (iters, float(tracing.read(res)))
         return x
 
     def solve_elastic_response(self):
@@ -838,8 +862,11 @@ class LinearMomentum(LinearMomentumBase):
             return (new_states, kern.prep(G),
                     kern.prep(mat.f_CT(G, dt, theta)), B6)
 
-        return self.graphs(("tangent", float(dt), theta), suite, states, sv_k,
-                           Temp)
+        span = tracing.dev_begin(self.device)
+        out = self.graphs(("tangent", float(dt), theta), suite, states, sv_k,
+                          Temp)
+        tracing.dev_end("tangent", span)
+        return out
 
     def _rhs(self, states, G_p, B6, CT, sv_lin, eps_th, b_ext, u, mask,
              u_bc, dt):
@@ -928,6 +955,7 @@ class LinearMomentum(LinearMomentumBase):
 
         Returns (states, sv, eps_v, u, iterations, err, krylov_total,
         krylov_last), iterations 0 and err 1.0 for a rejected sweep."""
+        tracing.begin(tracing.SWEEP)
         kern = self.kernel
         switch = self.solver.fp32_switch
         solve32 = self._get_solve32()
@@ -948,12 +976,14 @@ class LinearMomentum(LinearMomentumBase):
                 new_states, G_p, B6, CT, sv_k, eps_th32, b32, u32, mask32,
                 ubc32, dt)
             lin_rtol = min(max(0.05 * err_prev, 1e-6), 1e-2)
+            span = tracing.dev_begin(self.device)
             u_new, kry, lin_res = solve32(CT, b, x0, lin_rtol, mask32, ubc32,
                                           P)
+            tracing.dev_end("solve", span)
             u_new, eps_new, sv_new, states3, stats = self._update(
                 u_new, CT, eps_rhs, states2, sv_k, Temp32, eps32, w, lin_res,
                 None, dt, guard=(x0, b))
-            err, n_bad = stats.tolist()[:2]
+            err, n_bad = tracing.read(stats)[:2]
             err = err if n_bad == 0 else math.inf
             prog = err < 0.5 * err_prev
             kry_tot += kry
@@ -977,7 +1007,8 @@ class LinearMomentum(LinearMomentumBase):
                        if a.is_floating_point()]
             # every rank's checks: the gate is one decision
             failed = (~torch.stack(checks).all()).to(F64)
-            ok = not bool(kern.global_max(failed))
+            ok = not tracing.read(kern.global_max(failed))
+        tracing.end(tracing.SWEEP)
         if not ok:
             return states, sv, eps_v, u, 0, 1.0, kry_tot, kry
         self.fp32_accepted += 1
@@ -1018,6 +1049,7 @@ class LinearMomentum(LinearMomentumBase):
 
         Returns (states, sv, eps_v, u, sv_k, iterations, err,
         (krylov_total, krylov_last, lin_res, tangent_builds, rollbacks))."""
+        tracing.begin(tracing.FIXED_POINT)
         kern, theta = self.kernel, self.theta
         trivial_error = theta == 1.0 or not self.mat.elems_ne
         adaptive = self.solver.adaptive_rtol and not trivial_error
@@ -1032,8 +1064,8 @@ class LinearMomentum(LinearMomentumBase):
         # update below makes new tensors (a graph's outputs are clones),
         # none writes in place
         entry = (states, sv, eps_v, u)
-        sv_scale = float(kern.global_max(sv.abs().max())) if adaptive \
-            else 0.0
+        sv_scale = tracing.read(kern.global_max(sv.abs().max())) \
+            if adaptive else 0.0
         ite, err, sv_k, first = 0, 1.0, sv, True
         kry_tot, kry, lin_res = 0, 0, 0.0
         if (fp32_on and not trivial_error
@@ -1070,12 +1102,14 @@ class LinearMomentum(LinearMomentumBase):
             states2, eps_rhs, b, x0 = self._rhs(
                 new_states, G_p, B6, CT, sv_lin, eps_th, b_ext, u, mask, u_bc,
                 dt)
+            span = tracing.dev_begin(self.device)
             u_new, kry, res_t, bnorm_t = solve_lin(CT, b, mask, u_bc, x0,
                                                    lin_rtol, P)
+            tracing.dev_end("solve", span)
             u_new, eps_new, sv_new, states3, stats = self._update(
                 u_new, CT, eps_rhs, states2, sv_lin, self.Temp, eps_v, w,
                 res_t, bnorm_t, dt, trivial=trivial_error)
-            err, n_bad, lin_res, lin_bnorm, uu, sv_max = stats.tolist()
+            err, n_bad, lin_res, lin_bnorm, uu, sv_max = tracing.read(stats)
             # solve acceptance: a diverged solve, or a tight one stalled
             # more than 4 decades above its target, fails the step (err=inf
             # -> dt-retry); a loose one gets one decade and the rollback
@@ -1101,16 +1135,20 @@ class LinearMomentum(LinearMomentumBase):
         self.tangent_builds_total += builds
         self.rollbacks_total += rollbacks
         self.fp_iterations_total += ite
+        self.krylov_iterations_total += kry_tot
+        tracing.end(tracing.FIXED_POINT)
         return (states, sv, eps_v, u, sv_k, ite, err,
                 (kry_tot, kry, lin_res, builds, rollbacks))
 
     def _commit(self, states, sv, sv_k, dt):
+        tracing.begin(tracing.COMMIT)
         out = []
         for e, st in zip(self.mat.elems_ne, states):
             st = e.f_commit_isv(st)
             st = e.f_rate_to_old(st)
             st = e.f_update_eps_old(st, sv, sv_k, dt * (1 - self.theta))
             out.append(st)
+        tracing.end(tracing.COMMIT)
         return out
 
     def commit_time_step(self, dt, stress=None, stress_k=None):
@@ -1134,6 +1172,7 @@ class LinearMomentum(LinearMomentumBase):
         previous step.  The last iteration's sigma_k is kept for the commit
         phase.  A true ``_fp32_disable`` attribute (set by a dt-retry) runs
         the step without the f32 sweep."""
+        tracing.begin(tracing.STEP)
         u_prev = getattr(self, "_u_last_step", None)
         u0 = self.u if u_prev is None else self.u + (self.u - u_prev)
         self._u_last_step = self.u
@@ -1142,6 +1181,7 @@ class LinearMomentum(LinearMomentumBase):
             u0, *self._step_inputs(t), dt, tol, maxiter,
             fp32_on=not getattr(self, "_fp32_disable", False),
             eps_th=self.compute_eps_th())
+        tracing.end(tracing.STEP)
         for e, st in zip(self.mat.elems_ne, states):
             e.state = st
         self.sig_v, self.eps_tot_v, self.u = sv, eps_v, u
@@ -1161,6 +1201,8 @@ class LinearMomentum(LinearMomentumBase):
         Returns a (K, 6) float array of rows ``[iterations, error,
         krylov_total, krylov_last, lin_res, converged]``; rows after the
         first ``converged == 0`` are ``[0, 1, 0, 0, 0, 0]``."""
+        tracing.begin(tracing.CHUNK)
+        step0 = tracing.TRACER.step
         states = [e.state for e in self.mat.elems_ne]
         sv, eps_v, u = self.sig_v, self.eps_tot_v, self.u
         u_prev = getattr(self, "_u_last_step", None)
@@ -1168,15 +1210,18 @@ class LinearMomentum(LinearMomentumBase):
             u_prev = u
         eps_th = self.compute_eps_th()
         rows, failed = [], False
-        for t, dt in zip(ts, dts):
+        for k, (t, dt) in enumerate(zip(ts, dts)):
             if failed:
                 rows.append([0.0, 1.0, 0.0, 0.0, 0.0, 0.0])
                 continue
+            tracing.at_step(step0 + k)
+            tracing.begin(tracing.STEP)
             x0 = u + (u - u_prev)
             (st_n, sv_n, eps_n, u_n, sv_k, ite, err, stats) = \
                 self._fixed_point(states, sv, eps_v, x0,
                                   *self._step_inputs(t), dt, tol, maxiter,
                                   eps_th=eps_th)
+            tracing.end(tracing.STEP)
             self.tangent_builds, self.rollbacks = stats[3], stats[4]
             conv = math.isfinite(err) and err <= tol
             if conv:
@@ -1201,6 +1246,7 @@ class LinearMomentum(LinearMomentumBase):
             self.krylov_total = 0
             self.solver_stats = (0, float("nan"))
         self.run_after_solve()
+        tracing.end(tracing.CHUNK)
         return stats
 
     def solve_tm_time_steps(self, heat, ts, dts, tol=1e-6, maxiter=20):

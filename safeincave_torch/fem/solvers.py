@@ -36,6 +36,8 @@ from typing import Callable
 
 import torch
 
+from .. import tracing
+
 F64 = torch.float64
 
 # Krylov iterations per host read, chosen on the card from {1, 2, 4, 8} by
@@ -140,12 +142,15 @@ class _BiCGStab:
 
 def _loop(block, state, run, tag):
     """Run ``block`` until the test it reports is false; one host read per
-    block.  Returns (state, the last packed stats as floats)."""
+    block.  Returns (state, the last packed stats as floats).  The loop is
+    a ``krylov`` span."""
+    tracing.begin(tracing.KRYLOV)
     while True:
         state, stats = (block(state) if run is None
                         else run(tag, block, state))
-        vals = stats.tolist()
+        vals = tracing.read(stats)
         if not vals[0]:
+            tracing.end(tracing.KRYLOV)
             return state, vals
 
 

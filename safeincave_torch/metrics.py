@@ -4,8 +4,8 @@ from __future__ import annotations
 
 import json
 import os
-import time
 
+from . import tracing
 from .utils import is_main_process
 
 
@@ -17,19 +17,21 @@ class StepMetrics:
         self.records: list[dict] = []
         self.jsonl_path = jsonl_path
         self._fh = None
-        self._t_last = time.time()
+        self._t_last = tracing.now()
         if jsonl_path and is_main_process():
             os.makedirs(os.path.dirname(jsonl_path) or ".", exist_ok=True)
             self._fh = open(jsonl_path, "w")
 
     def record(self, step: int, t: float, dt: float, fp_iters: int,
                error: float, wall_s: float | None = None, **kw):
-        """``wall_s=None`` measures since the previous record (per-step
-        flow); a fused chunk passes each step's share of its wall-clock."""
-        now = time.time()
+        """``wall_s=None`` measures since the previous record on the clock
+        of :mod:`~safeincave_torch.tracing` (per-step flow); a fused chunk
+        passes each step's own ``step`` span."""
+        now = tracing.now()
         rec = {"step": step, "t": t, "dt": dt, "fp_iters": fp_iters,
                "error": error,
-               "wall_s": (now - self._t_last) if wall_s is None else wall_s,
+               "wall_s": 1e-9 * (now - self._t_last) if wall_s is None
+               else wall_s,
                **kw}
         self._t_last = now
         self.records.append(rec)

@@ -36,6 +36,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from .. import tracing
 from ..fem.kernels import F32, F64, NodeGather, RankOps, element_stiffness
 from ..fem.momentum import _blk_apply, _coarse_space
 from ..mesh.native import morton_order, rcb_partition
@@ -550,11 +551,13 @@ def make_halo_masked_solver(halo: HaloMomentumSolver, settings, apply_M,
                              inner_rtol=settings.inner_rtol,
                              inner_maxiter=settings.max_it,
                              max_passes=settings.max_passes, dot=halo.dot)
-        if float(res) > rtol * float(b_eff_norm):
+        res_h = tracing.read(res)
+        if res_h > rtol * tracing.read(b_eff_norm):
             x2, k2, res2 = solve(Aop, b_eff, x, M_inv, rtol=rtol,
                                  maxiter=settings.max_it, dot=halo.dot)
             k += k2
-            if math.isfinite(float(res2)) and float(res2) < float(res):
+            res2_h = tracing.read(res2)
+            if math.isfinite(res2_h) and res2_h < res_h:
                 x, res = x2, res2
         return halo.from_padded(x), k, res, b_eff_norm
 

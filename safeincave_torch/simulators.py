@@ -19,11 +19,11 @@ from __future__ import annotations
 
 import os
 import sys
-import time
 from abc import ABC, abstractmethod
 
 import numpy as np
 
+from . import tracing
 from .checkpoint import save_checkpoint
 from .fem.momentum import LinearMomentumBase
 from .metrics import StepMetrics
@@ -45,6 +45,12 @@ def _planned_steps(tc, chunk):
         ts.append(tc.t)
         dts.append(tc.dt)
     return ts, dts
+
+
+def _keeps(output):
+    """Whether ``output``'s next ``save_fields`` call writes."""
+    fn = getattr(output, "calls_until_next_keep", None)
+    return fn is None or fn() == 1
 
 
 def _output_cap(outputs, cap):
@@ -132,19 +138,26 @@ class Simulator_M(Simulator):
         ts, dts = _planned_steps(tc, chunk)
         if not ts:
             return True
-        t_wall0 = time.time()
+        tracing.at_step(s0 + 1)
+        tracing.take_walls()
+        t_wall0 = tracing.now()
         stats = eq.solve_time_steps(ts, dts, tol=self.tol,
                                     maxiter=self.maxiter)
-        chunk_wall = time.time() - t_wall0
+        chunk_wall = 1e-9 * (tracing.now() - t_wall0)
+        walls = tracing.take_walls()
         conv = (stats[:, 5] > 0.5).astype(int)
         n_ok = int(conv.cumprod().sum())     # converged prefix length
+        self._converged += n_ok
         for k in range(n_ok):
             step_no = s0 + 1 + k
             if self.metrics is not None:
-                # each step's share of the chunk's wall-clock, flagged fused
+                # each step's own span (its share of the chunk's time when
+                # tracing is off), flagged fused
                 self.metrics.record(step_no, ts[k], dts[k],
                                     int(stats[k, 0]), float(stats[k, 1]),
-                                    wall_s=chunk_wall / max(n_ok, 1),
+                                    wall_s=1e-9 * walls[k]
+                                    if k < len(walls)
+                                    else chunk_wall / max(n_ok, 1),
                                     fused=True,
                                     converged=True, dt_cuts=0,
                                     krylov=int(stats[k, 3]),
@@ -179,6 +192,21 @@ class Simulator_M(Simulator):
         return False
 
     def run(self):
+        """Run the time loop; one run record of
+        :mod:`~safeincave_torch.tracing` spans it."""
+        eq = self.eq_mom
+        self._converged = 0
+        tracing.at_step(self.t_control.step_counter)
+        tracing.open_run(getattr(eq, "counters", None),
+                         cuda=eq.device.type == "cuda")
+        completed = False
+        try:
+            self._run()
+            completed = True
+        finally:
+            tracing.close_run(self._converged, completed)
+
+    def _run(self):
         eq = self.eq_mom
         tc = self.t_control
         # tc.step_counter > 0: load_checkpoint restored a mid-run state,
@@ -221,6 +249,7 @@ class Simulator_M(Simulator):
             # the per-step flow with dt-halving retry
             tc.advance_time()
             t, dt = tc.t, tc.dt
+            tracing.at_step(tc.step_counter)
 
             stress_backup = stress
             eps_backup = eps_tot
@@ -282,6 +311,7 @@ class Simulator_M(Simulator):
             eq._fp32_disable = False
 
             if step_converged:
+                self._converged += 1
                 eq.commit_time_step(dt_current, stress, stress_k)
                 if hasattr(tc, "feedback"):
                     tc.feedback(ite, dt_cuts=dt_cut)
@@ -314,6 +344,11 @@ class Simulator_M(Simulator):
 
     # ------------------------------------------------------------------ #
     def _save_derived_and_outputs(self, t):
+        """The derived fields and every output's save call; a ``save`` span
+        when an output writes."""
+        kept = tracing.enabled() and any(map(_keeps, self.outputs))
+        if kept:
+            tracing.begin(tracing.SAVE)
         eq = self.eq_mom
         eq.compute_p_elems()
         eq.compute_q_elems()
@@ -321,6 +356,8 @@ class Simulator_M(Simulator):
         eq.compute_q_nodes()
         for output in self.outputs:
             output.save_fields(t)
+        if kept:
+            tracing.end(tracing.SAVE)
 
     def _dump_diagnostics(self, t, dt):
         """NaN diagnostic dump to ``nan_diagnostic.npz`` in the working

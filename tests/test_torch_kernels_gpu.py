@@ -249,3 +249,74 @@ def test_update_graph(cavern600):
     _same(got, want)
     assert got[0] is u_new                  # an input passed through
     assert torch.isfinite(got[4]).all()
+
+
+# -- the tracer's run records on the card ------------------------------------ #
+def _events_around(eq):
+    """CUDA events recorded around every call of ``eq``'s tangent suite and
+    linear solves (the f64 solve and the f32 sweep's), from outside the
+    equation; returns ({kind: [(start, stop)]}, undo)."""
+    spans = {"tangent": [], "solve": []}
+
+    def timed(kind, fn):
+        def call(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            stop.record()
+            spans[kind].append((start, stop))
+            return out
+        return call
+
+    solvers = (eq._get_solver(), eq._get_solve32())
+    eq._tangent = timed("tangent", eq._tangent)
+    eq._solve_lin = timed("solve", solvers[0])
+    eq._solve32 = timed("solve", solvers[1])
+
+    def undo():
+        del eq._tangent
+        eq._solve_lin, eq._solve32 = solvers
+    return spans, undo
+
+
+@pytest.mark.gpu
+def test_second_run_captures_nothing_and_device_spans_agree(cuda, tmp_path):
+    """Two Simulator_M runs of three fused 1 h steps from one saved state
+    (cavern600, the f32 sweep on): the first captures graphs, the second
+    none and lists no capture keys; the second run's device spans agree
+    with events recorded around the same calls from outside, replays are
+    its replay spans, and its gaps lie inside the run."""
+    from safeincave_torch import tracing
+    eq = cfg.wire_bench(st, cfg.cavern600_grid(st), precond="auto",
+                        fp32_phase="auto", device="cuda")
+    cfg.elastic_init(eq)
+    state = str(tmp_path / "state.npz")
+    st.save_checkpoint(state, eq)
+
+    def run():
+        tc = st.TimeController(dt=1.0, initial_time=0.0, final_time=3.0,
+                               time_unit="hour")
+        st.load_checkpoint(state, eq, tc)
+        st.Simulator_M(eq, tc, [], compute_elastic_response=False).run()
+        return tracing.runs[-1]
+
+    first = run()
+    spans, undo = _events_around(eq)
+    try:
+        second = run()
+    finally:
+        undo()
+    assert first["counters"]["captures"] > 0 and first["captures"]
+    assert second["counters"]["captures"] == 0 and second["captures"] == []
+    assert second["steps"] == 3 and second["cuda"]
+    assert second["spans"]["replay"]["count"] == \
+        second["counters"]["replays"] > 0
+    assert 0 < sum(second["gaps"].values()) \
+        < second["end_ns"] - second["start_ns"]
+    for kind in ("tangent", "solve"):
+        ours = [ms for _, ms in second["device"][kind]]
+        theirs = [a.elapsed_time(b) for a, b in spans[kind]]
+        assert len(ours) == len(theirs) > 0, kind
+        for a, b in zip(ours, theirs):
+            assert abs(a - b) <= 0.03 * b + 0.05, (kind, a, b)

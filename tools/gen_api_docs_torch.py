@@ -44,6 +44,8 @@ PORT_ONLY = {
     f"{PKG}.fem.graphs": "captured CUDA graphs of the time step's pieces, "
                          "the counterpart of jax.jit",
     f"{PKG}.parallel.dist": "one rank per card over torch.distributed",
+    f"{PKG}.tracing": "spans, gaps, device spans and run records of the "
+                      "port's own work, on by default",
     f"{PKG}.csrc": "the hand-written CUDA kernels",
 }
 # what the JAX package has and the port leaves out
