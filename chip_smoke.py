@@ -6,7 +6,7 @@ of its parallel layer on four.
 Phases, one line each; any failure raises and the exit code is non-zero:
 
 1. device  - the card (nvidia-smi name, power limit) and torch/CUDA versions.
-2. build   - nvcc builds the band and block-DIA kernels from
+2. build   - nvcc builds the band, block-DIA and symmetric dense kernels from
              safeincave_torch/csrc/, one process each, in parallel; the host
              compiler builds native/mesh_preprocess.cpp (Morton / RCB
              ordering), which must load: the numpy versions are for
@@ -19,12 +19,16 @@ Phases, one line each; any failure raises and the exit code is non-zero:
              path) and at the band-ordered cavern_proxy_1200 and
              cavern_interlayer_proxy (phase 18's meshes), 2e-5 max|ref|;
              the f32 DIA matvec at the box path's nx=17 and at nx=44, 1e-5
-             max|ref|, and the f64 DIA matvec at nx=17, 1e-12.
+             max|ref|, and the f64 DIA matvec at nx=17, 1e-12; the dense
+             preconditioner's packed symmetric apply at cavern600's and
+             cavern_interlayer_1200's 3N on a random matrix, 1e-5 max|ref|,
+             with ``torch.mv`` on the full matrix (the gemv it replaced) as
+             its ``library_ms``.
              Bitwise repeatability and energy symmetry.  Per kernel and
              shape: ``ms`` (the wrapper call, CUDA events over 200 calls),
              ``device_ms`` (the kernels' own time per call, torch.profiler,
              the L2 cache flushed by a 128 MB read before each call, as
-             the Krylov loop's preconditioner gemv leaves it;
+             the Krylov loop's preconditioner apply leaves it;
              ``device_ms_warm`` back to back), ``bound_ms`` (the bytes the
              function needs over 3.35 TB/s; its operations are far fewer)
              and ``pct_of_bound``, ``plain_ms``, and ``library_ms``: a
@@ -401,7 +405,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden", "torch_port_{}.npz")
 HOUR = 3600.0
-KERNELS = ("band_matvec", "dia_matvec")
+KERNELS = ("band_matvec", "dia_matvec", "sym_dense_matvec")
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12               # float32 outside the tensor cores
@@ -411,6 +415,10 @@ BAND = dict(name="band_matvec_f32", route="cuda",
 DIA = dict(name="dia_matvec_f32", route="cuda",
            source="safeincave_torch/csrc/dia_matvec.cu",
            replaces="safeincave_tpu/fem/dia.py:301")
+SYM = dict(name="sym_dense_matvec_f32", route="cuda",
+           source="safeincave_torch/csrc/sym_dense_matvec.cu",
+           replaces="none: the dense preconditioner's gemv",
+           library="torch.mv on the full inverse")
 
 
 # the path whose launches a kernel row of each mesh reports (else the
@@ -484,7 +492,7 @@ class DeviceTimer:
     def __init__(self):
         import torch
         # reading 128 MB (> the 50 MB L2) leaves the cache full of clean
-        # lines, as the preconditioner's gemv leaves it in the Krylov loop;
+        # lines, as the preconditioner's apply leaves it in the Krylov loop;
         # a written buffer would leave dirty lines whose write-back the next
         # kernel would pay for
         buf = torch.ones(2 ** 25, device="cuda")
@@ -638,13 +646,15 @@ def fmt(per):
 
 def measure(timer, what, shape, kernel, plain, A, u, v, tol, nbytes, flops):
     """One kernel at one shape: held against its plain twin and timed, the
-    cuSPARSE SpMV of the same operator held and timed beside it."""
+    library call of the same operator (``what["library"]``, by default the
+    cuSPARSE SpMV) held and timed beside it."""
     err, scale, sym, ms, plain_ms = hold(f"{what['name']} {shape}", kernel,
                                          plain, u, v, tol)
     x = u.reshape(-1)
+    lib = what.get("library", "cuSPARSE")
     lib_err = (A @ x - plain(u).reshape(-1)).abs().max().item()
     if not lib_err <= tol * scale:
-        raise AssertionError(f"cuSPARSE operator at {shape} differs from "
+        raise AssertionError(f"{lib} operator at {shape} differs from "
                              f"the plain twin: {lib_err} > {tol} * {scale}")
     device_ms, per, source = timer.ms(lambda: kernel(u))
     warm_ms, _, _ = timer.ms(lambda: kernel(u), cold=False)
@@ -669,7 +679,7 @@ def measure(timer, what, shape, kernel, plain, A, u, v, tol, nbytes, flops):
                   f"ms cold / {warm_ms:.4f} warm ({source}: {fmt(per)}), "
                   f"bound {row['bound_ms']:.4f} ms ({nbytes / 1e6:.2f} MB), "
                   f"{row['pct_of_bound']:.1f}% of bound; plain "
-                  f"{plain_ms:.4f} ms; cuSPARSE {row['library_ms']:.4f} ms, "
+                  f"{plain_ms:.4f} ms; {lib} {row['library_ms']:.4f} ms, "
                   f"device {lib_device_ms} ms ({fmt(lib_per)})")
     return row
 
@@ -710,8 +720,11 @@ def kernel_phase(st, cfg, dev):
         shapes += [(cfg.TM_CYCLIC[p][1],
                     cfg.band_grid(st, *cfg.TM_CYCLIC[p][:2]))
                    for p in ("tmcyc_regular1200", "tmcyc_interlayer600")]
+    sym_sizes = {}
     for shape, grid in shapes:
         E, N = grid.n_elems, grid.n_nodes
+        if shape in ("cavern600", "cavern_interlayer_1200"):
+            sym_sizes[shape] = 3 * N
         kern = MomentumKernel(grid, dev)
         band = BandMatvec(kern)
         CT = ct(E, f32)
@@ -726,6 +739,29 @@ def kernel_phase(st, cfg, dev):
             A, *vecs(N, f32), 2e-5, (48 * 4 + 4 * 4) * E + 2 * 12 * N,
             228 * E))
         del kern, band, CT, ctv, A
+
+    try:
+        from safeincave_torch.fem import symdense
+    except ImportError:                 # absent from an older --tree
+        sym_sizes = {}
+    for shape, n in sym_sizes.items():
+        # a random symmetric matrix of the dense preconditioner's size,
+        # packed; the yardstick is the gemv the port ran before
+        g = torch.Generator(device=dev).manual_seed(n)
+        inv = torch.randn((n, n), generator=g, device=dev)
+        sym = symdense.SymDense(inv)
+        full = 0.5 * (inv + inv.T)
+        del inv
+        index = tuple(torch.as_tensor(a, device=dev)
+                      for a in symdense.chunk_index(n))
+        rows.append(measure(
+            timer, SYM, f"{shape} (3N={n})", sym,
+            lambda x: symdense.sym_dense_plain(sym.tiles, n, x, index),
+            full, *(torch.randn(n, generator=g, device=dev)
+                    for _ in range(2)), 1e-5,
+            4 * n * (n + 1) // 2 + 2 * 4 * n, 2 * n * n))
+        del sym, full, index
+        torch.cuda.empty_cache()
 
     for nx in (17, 44):
         g = box(nx)
@@ -3348,13 +3384,14 @@ def main():
 
     # 2. build ------------------------------------------------------------- #
     t0 = time.perf_counter()
-    _build.build(KERNELS)
-    for name in KERNELS:
+    kernels = [k for k in KERNELS if k in _build.SIGNATURES]  # older --tree
+    _build.build(kernels)
+    for name in kernels:
         _build.load(name)
-    say("build", f"{', '.join(KERNELS)} built in parallel and loaded in "
+    say("build", f"{', '.join(kernels)} built in parallel and loaded in "
                  f"{time.perf_counter() - t0:.2f} s (nvcc: " + ", ".join(
                      f"{n} {_build.build_seconds.get(n, 0.0):.2f} s"
-                     for n in KERNELS) + ")")
+                     for n in kernels) + ")")
     if hasattr(st.mesh, "native"):      # absent from an older --tree
         if not st.mesh.native.available():
             raise AssertionError("native/mesh_preprocess.cpp did not build "
@@ -3411,33 +3448,38 @@ def main():
     P, _ = eq._get_precond()
     if not (len(P) == 1 and tuple(P[0].shape) == (3 * N, 3 * N)):
         raise AssertionError("precond 'auto' did not resolve to dense")
+    sym = eq._sym_dense()
     u_elastic = eq.u.cpu().numpy()
     elastic_krylov = eq.solver_stats[0]
     rows3 = eq.solve_time_steps([(k + 1) * HOUR for k in range(3)],
                                 [HOUR] * 3, tol=1e-8, maxiter=40)
     u3, sig3 = eq.u.cpu().numpy(), eq.sig_v.cpu().numpy()
     ((rows1, _),) = run_chunks(eq, 4 * HOUR, (10,))
-    before = band.launches
+    before, sym_before = band.launches, sym.launches
     ((rows2, secs2),) = run_chunks(eq, 14 * HOUR, (10,))
-    launches = band.launches
+    launches, sym_launches = band.launches, sym.launches
     band_per_step = (launches - before) / len(rows2)
+    sym_per_step = (sym_launches - sym_before) / len(rows2)
     all_rows = np.concatenate([rows3, rows1, rows2])
     if not (all_rows[:, 5] == 1).all():
         raise AssertionError(f"non-converged steps: {all_rows[:, [0, 1, 5]]}")
-    if launches <= 0:
-        raise AssertionError("the main path never launched the band kernel")
+    if launches <= 0 or sym_per_step <= 0:
+        raise AssertionError("the main path never launched the band kernel "
+                             "or the dense preconditioner's kernel")
     say("main", f"elastic {elastic_s:.2f} s incl. dense preconditioner "
                 f"({elastic_krylov} Krylov); 23 steps converged; chunk 2: "
                 f"{1e3 * secs2 / len(rows2):.1f} ms/step, "
                 f"{rows2[:, 0].mean():.2f} fixed-point it/step, "
                 f"{rows2[:, 2].mean():.1f} Krylov it/step; band launches "
-                f"{launches}, {band_per_step:.1f} per step in chunk 2; peak "
+                f"{launches}, {band_per_step:.1f} per step in chunk 2; "
+                f"preconditioner applies {sym_launches}, {sym_per_step:.1f} "
+                f"per step; peak "
                 f"device memory "
                 f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     # 5. cavern600 parity --------------------------------------------------- #
     parity("parity", golden, u_elastic, rows3, u3, sig3)
-    del eq, P, band
+    del eq, P, band, sym
 
     # 6. box path: block-DIA, dense preconditioner, f32 sweep -------------- #
     golden = np.load(GOLDEN.format("box17"))
@@ -3544,12 +3586,14 @@ def main():
                            "examples": examples,
                            "bench": bench[DIA["name"]],
                            "conformance": (conformance[DIA["name"]], None),
-                           "graphs": graph_launches[DIA["name"]]}}
+                           "graphs": graph_launches[DIA["name"]]},
+             SYM["name"]: {"main": (sym_launches, sym_per_step)}}
     for row in kernel_rows:
         by_path = paths[row["name"]]
         # a row of a mesh reports the path that runs at its shape
         own = next((p for mesh, p in OWN_PATH.items()
-                    if row["shape"].startswith(mesh)), next(iter(by_path)))
+                    if row["shape"].startswith(mesh) and p in by_path),
+                   next(iter(by_path)))
         row["launches"], row["launches_per_step"] = by_path[own]
         row["launches_by_path"] = {k: n for k, (n, _) in by_path.items()}
         row["launches_per_step_by_path"] = {k: r for k, (_, r)

@@ -38,6 +38,11 @@ SIGNATURES = {
         "dia_matvec_f64": ([_P] * 5, ctypes.c_int),
         "dia_matvec_error_string": ([_I], ctypes.c_char_p),
     },
+    "sym_dense_matvec": {
+        # (const SymPlan*, x, y, stream)
+        "sym_dense_matvec_f32": ([_P] * 4, ctypes.c_int),
+        "sym_dense_matvec_error_string": ([_I], ctypes.c_char_p),
+    },
 }
 
 _loaded: dict = {}

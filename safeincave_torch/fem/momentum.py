@@ -53,6 +53,7 @@ from .graphs import Graphs
 from .kernels import F32, F64, MomentumKernel
 from .solvers import (_SPECS, _ir, _krylov, _vdot, bicgstab_solve, cg_solve,
                       ir_solve)
+from .symdense import SymDense
 
 
 @dataclass
@@ -65,16 +66,19 @@ class SolverSettings:
     in f64.
 
     ``precond``: "dense" is the dense f32 inverse of the masked elastic
-    operator, built once per wiring and applied as one gemv per Krylov
-    iteration ((3 n_nodes)^2 f32 of device memory, gated by
-    ``dense_max_dofs``); "2level" is block-Jacobi plus a dense coarse
+    operator, built once per wiring, symmetrized and kept as its packed
+    upper triangle (about (3 n_nodes)^2 / 2 f32 of device memory, gated by
+    ``dense_max_dofs``), applied twice per BiCGStab iteration (once per CG
+    iteration) by a hand kernel that reads the triangle once
+    (fem/symdense.py); "2level" is block-Jacobi plus a dense coarse
     correction over ``coarse_agg`` consecutive nodes; "jacobi" is nodal
     3x3 blocks.  "auto" picks dense on CUDA below the gate and 2level
     otherwise, as the JAX package does on an accelerator and on the CPU.
 
-    ``precond_bf16`` stores the dense inverse in bfloat16 and applies it
-    with float32 accumulation: half the device memory of the inverse, at the
-    price of more Krylov iterations.
+    ``precond_bf16`` stores the whole dense inverse, unsymmetrized, in
+    bfloat16 and applies it with float32 accumulation (torch ops): the
+    device memory of the packed f32 triangle, at the price of more Krylov
+    iterations.
 
     Every method other than "cg" runs BiCGStab, as in the JAX package.
 
@@ -236,12 +240,13 @@ def build_preconditioner(kern, C, mask, settings: SolverSettings):
         (inv,) = kern.from_rank0(
             lambda: (_dense_inverse_precond(kern, C, mask),))
         if not settings.precond_bf16:
+            # symmetrized and packed to its upper triangle (fem/symdense.py);
+            # the full inverse is freed when this returns
             def apply_dense(P, r, m):
-                (inv,) = P
-                x = torch.mv(inv, r.reshape(-1).to(inv.dtype))
-                return x.reshape(-1, 3).to(r.dtype)
+                (sym,) = P
+                return sym(r.reshape(-1).to(F32)).reshape(-1, 3).to(r.dtype)
 
-            return (inv,), apply_dense
+            return (SymDense(inv),), apply_dense
 
         def apply_dense_bf16(P, r, m):
             # bf16 operands, f32 products and sums: row blocks of the
@@ -678,10 +683,12 @@ class LinearMomentum(LinearMomentumBase):
         builds, rollbacks and accepted float32 sweeps."""
         kern = self.kernel
         band, dia = getattr(kern, "band", None), getattr(kern, "dia", None)
+        sym = self._sym_dense()
         return {"replays": self.graphs.replays,
                 "captures": self.graphs.captures,
                 "band_launches": band.launches if band is not None else 0,
                 "dia_launches": dia.launches if dia is not None else 0,
+                "precond_launches": sym.launches if sym is not None else 0,
                 "fp_iterations": self.fp_iterations_total,
                 "krylov_iterations": self.krylov_iterations_total,
                 "tangent_builds": self.tangent_builds_total,
@@ -697,8 +704,14 @@ class LinearMomentum(LinearMomentumBase):
         if getattr(self, "graphs", None) is not None:
             self.graphs.clear()
         self.graphs = Graphs(
-            self.device, counters=lambda: (self.kernel.band, self.kernel.dia),
+            self.device, counters=lambda: (self.kernel.band, self.kernel.dia,
+                                           self._sym_dense()),
             enabled=self._halo is None and type(self.kernel) is MomentumKernel)
+
+    def _sym_dense(self):
+        """The packed dense preconditioner, once built, or None."""
+        P = self._precond[0] if self._precond is not None else ()
+        return P[0] if len(P) == 1 and isinstance(P[0], SymDense) else None
 
     def enable_band_matvec(self):
         """Route the f32 Krylov stiffness action through the band kernel

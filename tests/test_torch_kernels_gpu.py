@@ -9,14 +9,18 @@ Each kernel against its plain twin on a random energy-symmetric tangent
 order), bitwise repeatable, energy-symmetric (v.Au = u.Av), one counted
 launch per call, and a refusal of a tensor it cannot take.
 
+The dense preconditioner's packed symmetric apply at cavern_proxy_600's and
+cavern_interlayer_1200's 3N (10,080 and 23,007) on a random inverse, against
+its plain twin (1e-5 max|ref|), with the same checks.
+
 The captured graphs of one fixed-point iteration on the cavern600 main path
 (phase 4's equation: band kernel, dense preconditioner): the tangent suite,
 the Krylov blocks of a linear solve and the update, each captured, then
 replayed under ``torch.cuda.set_sync_debug_mode("error")`` (a host sync in
 a replay raises), and held bit for bit against the same function under
-``graphs.eager()``; every call is one replay, and the band kernel's counter
-counts the launches of the replayed blocks as the eager solve counts its
-own.
+``graphs.eager()``; every call is one replay, and the band kernel's and the
+preconditioner's counters count the launches of the replayed blocks as the
+eager solve counts its own.
 
 The file imports no JAX, so it runs on the machine with the card:
 
@@ -35,6 +39,8 @@ from safeincave_torch.fem import graphs
 from safeincave_torch.fem.bandkernel import BandMatvec, band_matvec_plain
 from safeincave_torch.fem.dia import BlockDIA, dia_matvec_plain
 from safeincave_torch.fem.kernels import MomentumKernel
+from safeincave_torch.fem.symdense import (B, SymDense, chunk_index,
+                                           n_chunks, sym_dense_plain)
 from safeincave_torch.mesh.reorder import reordered_grid
 from safeincave_torch.utils import voigt_weight
 
@@ -124,6 +130,26 @@ def test_dia_kernel(cuda, nx, dtype, tol):
         dia.operator(vals[:, 1:])                  # not the padded layout
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["cavern600", "cavern1200"])
+def test_sym_dense_kernel(cuda, shape):
+    """The dense preconditioner's apply at the main paths' sizes (3N =
+    10,080 and 23,007) on a random inverse, packed symmetrized."""
+    grid = {"cavern600": lambda: cfg.cavern600_grid(st),
+            "cavern1200": lambda: cfg.yearly_grid(st)}[shape]()
+    n = 3 * grid.n_nodes
+    g = torch.Generator(device=cuda).manual_seed(n)
+    sym = SymDense(torch.randn((n, n), generator=g, device=cuda))
+    assert sym.tiles.shape == (n_chunks(n), B, 32)
+    u, v = (torch.randn(n, generator=g, device=cuda) for _ in range(2))
+    index = tuple(torch.as_tensor(a, device=cuda) for a in chunk_index(n))
+    _hold(sym, sym, lambda x: sym_dense_plain(sym.tiles, n, x, index),
+          u, v, 1e-5, 1e-5)
+    for bad in (u.double(), u[:-1], u.reshape(-1, 3), u.cpu(), u[::2]):
+        with pytest.raises(ValueError):
+            sym(bad)
+
+
 # -- the captured graphs of a fixed-point iteration at cavern600 ------------- #
 @pytest.fixture(scope="module")
 def cavern600():
@@ -196,18 +222,20 @@ def test_krylov_block_graph(cavern600):
     eq = cavern600
     it = _iteration(eq)
     P, _ = eq._get_precond()
-    band = eq.kernel.band
+    band, sym = eq.kernel.band, eq._sym_dense()
+    assert sym is P[0]
 
     def solve():
-        n = band.launches
+        n = band.launches, sym.launches
         x, k, res, bnorm = eq._get_solver()(it["CT"], it["b"], it["mask"],
                                             it["u_bc"], it["x0"], 1e-12, P)
         torch.cuda.synchronize()
-        return (x, k, res, bnorm), band.launches - n
+        return (x, k, res, bnorm), (band.launches - n[0],
+                                    sym.launches - n[1])
 
     with graphs.eager():
         want, launches = solve()
-    assert want[1] > 0 and launches > 0
+    assert want[1] > 0 and min(launches) > 0
     got, n_first = solve()                  # captures, then replays
     _same(got, want)
     assert n_first == launches

@@ -47,6 +47,8 @@ PORT_ONLY = {
     f"{PKG}.tracing": "spans, gaps, device spans and run records of the "
                       "port's own work, on by default",
     f"{PKG}.csrc": "the hand-written CUDA kernels",
+    f"{PKG}.fem.symdense": "the dense preconditioner kept as its packed "
+                           "symmetric triangle, and its CUDA kernel",
 }
 # what the JAX package has and the port leaves out
 LEFT_OUT = [
