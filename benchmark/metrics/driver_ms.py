@@ -1,7 +1,9 @@
 """driver_ms: per converged step, the traced episodes' time outside the
-equation's step calls (``solve_time_steps``, ``solve_time_step``,
-``commit_time_step``, each ended by a sync), the kept saves and the
-checkpoints: the time ``Simulator_M`` itself takes (host clock)."""
+equations' step calls (``solve_time_steps``, ``solve_tm_time_steps``,
+``solve_time_step``, ``commit_time_step`` and the heat equation's
+``solve``, each outermost call ended by a sync),
+the kept saves and the checkpoints: the time the simulator itself takes
+(host clock)."""
 
 
 def read(run):

@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .materials import KINDS, W, apply66, isotropic
+from .materials import ISO, KINDS, W, apply66, isotropic
 
 
 def per_element(mesh, value, rules):
@@ -35,7 +35,13 @@ def per_element(mesh, value, rules):
 class Model:
     """One configuration's equation on ``mesh``: materials from ``cfg``
     ("materials", "regions", "temperature_K", "theta", "supports"), in
-    ``dtype`` on ``device``."""
+    ``dtype`` on ``device``.
+
+    ``T`` (E,) is the element temperature the creep laws read, ``T0`` (E,)
+    the temperature of zero thermal strain.  A "thermoelastic" material
+    (expansion coefficient ``alpha``) adds the thermal strain
+    alpha (T - T0) I to the inelastic strain of the right-hand side, as the
+    program's ``eps_th`` does; without one there is no thermal strain."""
 
     def __init__(self, mesh, cfg, dtype=torch.float64, device="cpu"):
         self.mesh, self.dtype, self.device = mesh, dtype, torch.device(device)
@@ -45,6 +51,8 @@ class Model:
                                       device=self.device)
         n = mesh.n_elems
         self.T = t(np.full(n, float(cfg["temperature_K"])))
+        self.T0 = self.T.clone()
+        self.alpha = None
         self.mechs = []
         for spec in cfg["materials"]:
             kind = spec["type"]
@@ -52,6 +60,8 @@ class Model:
                     for k, v in spec.items() if k not in ("type", "name")}
             if kind == "spring":
                 self.C, self.C_inv = isotropic(t(vals["E"]), t(vals["nu"]))
+            elif kind == "thermoelastic":
+                self.alpha = t(vals["alpha"])
             else:
                 self.mechs.append(KINDS[kind](n, dtype, self.device, **vals))
         self.grad = t(mesh.grad)                               # (E, 4, 3)
@@ -160,6 +170,14 @@ class Model:
             m.update_rate(self.sv, 0.0, self.T)
             m.s["rate_old"] = m.s["rate"]
 
+    def thermal_strain(self):
+        """alpha (T - T0) I (E, 6), or None without a thermoelastic
+        material."""
+        if self.alpha is None:
+            return None
+        iso = torch.tensor(ISO, dtype=self.dtype, device=self.device)
+        return (self.alpha * (self.T - self.T0))[:, None] * iso
+
     def step(self, b, dt, tol, maxiter, strict=True):
         """One time step of length ``dt`` under the loads ``b`` (N, 3) at
         its end: the fixed point, then the commit.  Returns (iterations,
@@ -170,6 +188,7 @@ class Model:
         committed."""
         phi1, phi2 = dt * self.theta, dt * (1 - self.theta)
         sv, eps = self.sv, self.eps
+        eps_th = self.thermal_strain()
         ite, err, best = 0, 1.0, None
         while True:
             sv_k = sv
@@ -179,6 +198,8 @@ class Model:
                 m.predictor(phi1, phi2)
                 G, B = G + m.s["G"], B + m.s["B"]
                 eps_ne = eps_ne + m.s["eps_k"]
+            if eps_th is not None:
+                eps_ne = eps_ne + eps_th
             CT = self.consistent_tangent(G, phi2)
             eps_rhs = eps_ne - phi2 * (B + apply66(G, sv_k))
             u = self.solve(CT, b + self.force(apply66(CT, eps_rhs)))

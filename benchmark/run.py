@@ -169,7 +169,8 @@ def _run_cell(args, cell, device, work, wanted, episodes, judge, reference,
               torch, quiet):
     mesh_dir = rehearsal_mesh(work) if args.rehearse_cpu else None
     c = episodes.Cell(cell, args.seed, device, ROOT, work, mesh_dir)
-    trace = {"reads": 0, "tangent_ms": [], "solve_ms": [], "profile": None}
+    trace = {"reads": 0, "tangent_ms": [], "solve_ms": [], "heat_ms": [],
+             "profile": None}
     with contextlib.redirect_stdout(quiet), \
             episodes.Recorder(c.sync, timed=bool(args.trace)) as rec:
         t_imports = time.perf_counter() - T0
@@ -179,7 +180,7 @@ def _run_cell(args, cell, device, work, wanted, episodes, judge, reference,
         setup_s = time.perf_counter() - T0
         c.phases = {"imports": t_imports, **c.phases,
                     "first_episode": time.perf_counter() - t_first}
-        clock = episodes.StepClock(c.eq) \
+        clock = episodes.StepClock(c.eq, c.heat) \
             if args.trace and device.type == "cuda" else None
         window, t_start, t_epoch = [], time.perf_counter(), time.time()
         end_state = os.path.join(work, "end_state.npz")
@@ -190,13 +191,14 @@ def _run_cell(args, cell, device, work, wanted, episodes, judge, reference,
                 window.append(c.episode(rec, timed=bool(args.trace)))
                 if time.perf_counter() - t_start >= args.seconds:
                     break
-        episodes.save_checkpoint(end_state, c.eq)
+        episodes.save_checkpoint(end_state, c.eq, heat_eq=c.heat)
         trace["reads"] = n_reads[0]
         if clock is not None:
             spans = clock.take()
             clock.close()
             trace["tangent_ms"], trace["solve_ms"] = spans["tangent"], \
                 spans["solve"]
+            trace["heat_ms"] = spans["heat"]
         if args.trace and device.type == "cuda":
             from devtrace import profile_call
             rec.timed = False
@@ -208,13 +210,15 @@ def _run_cell(args, cell, device, work, wanted, episodes, judge, reference,
     last = window[-1]
     device_info = card_info(torch, device, cell["chips"])
     n_elems, n_nodes = c.eq.n_elems, c.eq.n_nodes
-    del c.eq, clock
+    del c.eq, c.heat, clock
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
     log(f"{cell['name']} seed {args.seed}: start {c.start_h} h, "
         f"{len(window)} episodes, counts per episode (steps, fixed-point, "
-        f"Krylov) {first['steps']}, {first['fp']}, {first['krylov']}")
+        f"Krylov) {first['steps']}, {first['fp']}, {first['krylov']}"
+        + ("" if first["heat_cg"] is None
+           else f", heat CG iterations {first['heat_cg']}"))
     log("set-up s: " + ", ".join(f"{k} {v:.3f}" for k, v in c.phases.items()))
     log(f"window from {t_epoch:.3f} (epoch s); episode s: "
         + ", ".join(f"{e['seconds']:.4f}" for e in window))

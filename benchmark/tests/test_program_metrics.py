@@ -24,6 +24,9 @@ from test_benchmark_harness import BENCH, ROOT
 CELL = "cavern600_desai.daily_output"
 HOST = ("driver_self_ms", "save_span_ms", "reads_per_step", "setup_precond_s")
 DEVICE = ("tangent_dev_ms", "solve_dev_ms", "host_gap_ms", "setup_capture_s")
+# reads the window's records too; 0 on the CPU, whose "auto" is 2level
+# (test_precond_applies_per_step.py)
+COUNTERS = ("precond_applies_per_step",)
 
 # logs what the readers' window selection found, beside the episodes
 PRELUDE = """
@@ -84,7 +87,7 @@ def test_window_runs_match_one_for_one(traced):
     _, err = traced
     found = [tuple(map(int, line.split()[1:]))
              for line in err.splitlines() if line.startswith("window_runs")]
-    assert len(found) == len(HOST) + len(DEVICE)
+    assert len(found) == len(HOST) + len(DEVICE) + len(COUNTERS)
     for episodes, records, distinct, stamps in found:
         assert episodes == records == distinct >= 1
         assert stamps >= episodes
