@@ -74,7 +74,9 @@ class HeatDiffusion:
         under float64 defect correction (fem/solvers.py ``ir_solve``).  The
         Robin facet term is tiny beside the mass term and stays float64
         inside the float32 operator, or the correction stalls.
-        ``precision="f64"`` runs plain float64 CG."""
+        ``precision="f64"`` runs plain float64 CG.  The step is a ``heat``
+        span of :mod:`~safeincave_torch.tracing`."""
+        tracing.begin(tracing.HEAT)
         kern, bc, s = self.kernel, self.bc, self.solver
         mask, T_bc = bc.dirichlet_arrays(t)
         coef = self.rho * self.cp / dt
@@ -105,10 +107,14 @@ class HeatDiffusion:
         b_eff = mask * (b - A_full(T_bc)) + (1.0 - mask) * T_bc
         x0 = mask * T + (1.0 - mask) * T_bc
         if s.precision == "mixed":
-            return ir_solve(Aop, Aop, b_eff, x0, M_inv, inner_solve=cg_solve,
-                            rtol=s.rtol, inner_rtol=s.inner_rtol,
-                            inner_maxiter=s.max_it, max_passes=s.max_passes)
-        return cg_solve(Aop, b_eff, x0, M_inv, rtol=s.rtol, maxiter=s.max_it)
+            out = ir_solve(Aop, Aop, b_eff, x0, M_inv, inner_solve=cg_solve,
+                           rtol=s.rtol, inner_rtol=s.inner_rtol,
+                           inner_maxiter=s.max_it, max_passes=s.max_passes)
+        else:
+            out = cg_solve(Aop, b_eff, x0, M_inv, rtol=s.rtol,
+                           maxiter=s.max_it)
+        tracing.end(tracing.HEAT)
+        return out
 
     def solve(self, t, dt):
         """Assemble and solve one implicit step; T and T_old both become

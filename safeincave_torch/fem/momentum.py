@@ -48,6 +48,7 @@ from .. import tracing
 from .._device import default_device
 from ..linalg import inv3x3
 from ..materials.base import _as_voigt, apply66
+from ..materials.viscoplastic import MohrCoulombViscoplastic
 from ..utils import voigt_to_tensor, voigt_weight
 from .graphs import Graphs
 from .kernels import F32, F64, MomentumKernel
@@ -650,7 +651,11 @@ class LinearMomentum(LinearMomentumBase):
     ``fp32_accepted`` counts the steps whose f32 sweep the health gate
     accepted; ``fp_iterations_total``, ``krylov_iterations_total``,
     ``tangent_builds_total`` and ``rollbacks_total`` run over every step
-    since the wiring (:meth:`counters` gathers them).
+    since the wiring (:meth:`counters` gathers them).  Every committed step
+    adds, per Mohr-Coulomb mechanism, its elements that can flow and are on
+    the yield surface at the committed stress to a count kept on the device
+    (no host read per step), and the elements that can flow to
+    ``mc_elem_steps``.
     """
 
     def __init__(self, grid, theta: float, auto_backend: bool = True,
@@ -667,6 +672,9 @@ class LinearMomentum(LinearMomentumBase):
         self.tangent_builds = self.rollbacks = 0
         self.tangent_builds_total = self.rollbacks_total = 0
         self.fp_iterations_total = self.krylov_iterations_total = 0
+        self._mc_yield = torch.zeros((), dtype=torch.int64,
+                                     device=self.device)
+        self.mc_elem_steps = 0
         backend = select_backend(grid, self.device) if auto_backend else None
         if backend == "dia":
             try:
@@ -680,7 +688,11 @@ class LinearMomentum(LinearMomentumBase):
         """The running counts whose deltas a run record keeps
         (:mod:`~safeincave_torch.tracing`): graph replays and captures,
         hand-kernel launches, fixed-point and Krylov iterations, tangent
-        builds, rollbacks and accepted float32 sweeps."""
+        builds, rollbacks, accepted float32 sweeps, and the Mohr-Coulomb
+        elements on the yield surface summed over committed steps
+        (``mc_yield_elems``) over the elements that can flow, summed alike
+        (``mc_elem_steps``).  The yield count is copied from the device
+        here, once per call, and by no read method of a tensor."""
         kern = self.kernel
         band, dia = getattr(kern, "band", None), getattr(kern, "dia", None)
         sym = self._sym_dense()
@@ -693,7 +705,9 @@ class LinearMomentum(LinearMomentumBase):
                 "krylov_iterations": self.krylov_iterations_total,
                 "tangent_builds": self.tangent_builds_total,
                 "rollbacks": self.rollbacks_total,
-                "fp32_accepted": self.fp32_accepted}
+                "fp32_accepted": self.fp32_accepted,
+                "mc_yield_elems": int(self._mc_yield.cpu().numpy()),
+                "mc_elem_steps": self.mc_elem_steps}
 
     def _reset_solvers(self):
         """Drop the linear solvers and the captured graphs (the
@@ -1161,6 +1175,9 @@ class LinearMomentum(LinearMomentumBase):
             st = e.f_rate_to_old(st)
             st = e.f_update_eps_old(st, sv, sv_k, dt * (1 - self.theta))
             out.append(st)
+            if isinstance(e, MohrCoulombViscoplastic):
+                self._mc_yield += e.yield_count(st)
+                self.mc_elem_steps += e.n_flowing
         tracing.end(tracing.COMMIT)
         return out
 
@@ -1276,6 +1293,8 @@ class LinearMomentum(LinearMomentumBase):
         Returns a (K, 6) float array of rows ``[heat_iters, heat_res,
         fp_iters, error, krylov_total, converged]``; rows after the first
         ``converged == 0`` are ``[0, 0, 0, 1, 0, 0]``."""
+        tracing.begin(tracing.CHUNK)
+        step0 = tracing.TRACER.step
         states = [e.state for e in self.mat.elems_ne]
         sv, eps_v, u = self.sig_v, self.eps_tot_v, self.u
         u_prev = getattr(self, "_u_last_step", None)
@@ -1283,10 +1302,12 @@ class LinearMomentum(LinearMomentumBase):
             u_prev = u
         T, T_old = heat.T, heat.T_old
         rows, failed = [], False
-        for t, dt in zip(ts, dts):
+        for k, (t, dt) in enumerate(zip(ts, dts)):
             if failed:
                 rows.append([0.0, 0.0, 0.0, 1.0, 0.0, 0.0])
                 continue
+            tracing.at_step(step0 + k)
+            tracing.begin(tracing.STEP)
             T_new, h_it, h_res = heat.step(T, T_old, t, dt)
             self.Temp = heat.kernel.nodes_to_elems(T_new)
             x0 = u + (u - u_prev)
@@ -1294,6 +1315,7 @@ class LinearMomentum(LinearMomentumBase):
                 self._fixed_point(states, sv, eps_v, x0,
                                   *self._step_inputs(t), dt, tol, maxiter,
                                   eps_th=self.compute_eps_th())
+            tracing.end(tracing.STEP)
             self.tangent_builds, self.rollbacks = stats[3], stats[4]
             conv = math.isfinite(err) and err <= tol
             if conv:
@@ -1302,8 +1324,8 @@ class LinearMomentum(LinearMomentumBase):
                 sv, eps_v, u = sv_n, eps_n, u_n
                 T = T_old = T_new
             failed = not conv
-            rows.append([float(h_it), float(h_res), float(ite), err,
-                         float(stats[0]), float(conv)])
+            rows.append([float(h_it), float(tracing.read(h_res)), float(ite),
+                         err, float(stats[0]), float(conv)])
         for e, st in zip(self.mat.elems_ne, states):
             e.state = st
         self.sig_v, self.eps_tot_v, self.u = sv, eps_v, u
@@ -1321,4 +1343,5 @@ class LinearMomentum(LinearMomentumBase):
             heat.solver_stats = (0, float("nan"))
             self.krylov_total = 0
         self.run_after_solve()
+        tracing.end(tracing.CHUNK)
         return stats

@@ -392,6 +392,21 @@ class MohrCoulombViscoplastic(_PerfectViscoplastic):
             "k_F": t(6.0 * self.cohesion * cos_phi / (sq3 * (3.0 - sin_phi))),
             "alpha_Q": t(2.0 * sin_psi / (sq3 * (3.0 - sin_psi))),
         }
+        self._n_flowing = int(np.count_nonzero(_host(mu_1) > 0))
+
+    @property
+    def n_flowing(self):
+        """How many elements can flow (mu_1 > 0; the interlayers of a
+        nobian mesh): the denominator of :meth:`yield_count`, counted on
+        the host when the element is made.  Cells the parallel layer pads
+        carry no stress and never yield."""
+        return self._n_flowing
+
+    def yield_count(self, state):
+        """How many elements that can flow have a positive yield function
+        in ``state``: a 0-dim int64 tensor on the element's device, made
+        without a host read."""
+        return ((state["Fvp"] > 0) & (self.params["mu_1"] > 0)).sum()
 
     @staticmethod
     def _rate_static(sv6, p):

@@ -514,10 +514,12 @@ class Simulator_TM(Simulator):
         ts, dts = _planned_steps(tc, chunk)
         if not ts:
             return True
+        tracing.at_step(s0 + 1)
         stats = eq.solve_tm_time_steps(heat, ts, dts, tol=self.tol,
                                        maxiter=self.maxiter)
         conv = (stats[:, 5] > 0.5).astype(int)
         n_ok = int(conv.cumprod().sum())
+        self._converged += n_ok
         for k in range(n_ok):
             current_time = "%.3f" % (ts[k] / tc.time_conversion)
             self.screen.print_row([
@@ -536,7 +538,9 @@ class Simulator_TM(Simulator):
         tc.t = ts[n_ok - 1] if n_ok else t0
         return False
 
-    def run(self):
+    run = Simulator_M.run
+
+    def _run(self):
         eq = self.eq_mom
         heat = self.eq_heat
         tc = self.t_control
@@ -575,6 +579,7 @@ class Simulator_TM(Simulator):
                 fused_failed = True
             tc.advance_time()
             t, dt = tc.t, tc.dt
+            tracing.at_step(tc.step_counter)
 
             eq.bc.update_dirichlet(t)
             eq.bc.update_neumann(t)
@@ -620,6 +625,7 @@ class Simulator_TM(Simulator):
             eq._fp32_disable = False
 
             if step_converged:
+                self._converged += 1
                 eq.commit_time_step(dt_current, eq.sig_v, eq._last_sv_k)
 
             self._save_derived_and_outputs(t)

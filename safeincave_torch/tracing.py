@@ -7,8 +7,9 @@ simulators, the fixed point, the Krylov loops, the graphs and the writers
 open and close them where their work happens:
 
 ========== ===============================================================
-``run``    ``Simulator_M.run()``; opening and closing it makes a run record
-``chunk``  ``LinearMomentum.solve_time_steps``
+``run``    ``Simulator_M.run()`` or ``Simulator_TM.run()``; opening and
+           closing it makes a run record
+``chunk``  ``LinearMomentum.solve_time_steps`` or ``solve_tm_time_steps``
 ``step``   one time step (inside a fused chunk too), to the return of its
            last read
 ``commit`` a step's commit
@@ -22,6 +23,7 @@ open and close them where their work happens:
 ``capture`` a graph's warm-up call and capture
 ``precond`` a preconditioner build, ended by a synchronize
 ``gap``    a stretch in which the device had nothing queued (below)
+``heat``   one step of the heat equation (``HeatDiffusion.step``)
 ========== ===============================================================
 
 Each span goes into a bounded ring (:data:`RING`) and into aggregates per
@@ -36,7 +38,9 @@ that span's name (cut where spans open and close, so each piece goes to
 the span that held the host; a replay's launch is the ``replay``'s) and put
 in the ring as one ``gap`` span.  A run on CUDA also opens a gap at its
 start.  Eager PyTorch operations in between are not enqueues here: their
-device time counts as gap.
+device time counts as gap.  A ``heat`` span keeps the gaps of the spans
+opened inside it (the heat step's eager CG loops and their reads) as its
+own, so the heat step's idle is named as one cause.
 
 **Device spans** ``tangent`` and ``solve``: CUDA event pairs, from a pool,
 around the tangent suite's replay and around each linear solve (the f64
@@ -44,12 +48,14 @@ solve and the float32 sweep's).  They resolve (``elapsed_time``) when
 complete, at the latest when the run record closes; at most
 :data:`LIVE` pairs stay pending.  On a CPU device they are not recorded.
 
-**Run records.**  Each ``Simulator_M.run()`` leaves one dict in
+**Run records.**  Each ``Simulator_M.run()`` and ``Simulator_TM.run()``
+leaves one dict in
 :data:`runs` (newest last): ``start_ns``, ``end_ns``, converged ``steps``,
 ``cuda``, ``completed``, ``spans`` ({name: {count, total_ns, self_ns}} of
 the run), ``gaps`` ({cause: ns}), ``counters`` (deltas of the equation's
 counters: graph replays and captures, hand-kernel launches, fixed-point and
-Krylov iterations, tangent builds, rollbacks, accepted float32 sweeps),
+Krylov iterations, tangent builds, rollbacks, accepted float32 sweeps,
+Mohr-Coulomb elements on the yield surface),
 ``captures`` (the keys of the graphs captured in the run), ``device``
 ({kind: [[step, ms], ...]}) and ``setup`` (the process-wide span and device
 totals when the run started).
@@ -74,9 +80,10 @@ import os
 import time
 
 NAMES = ("run", "chunk", "step", "commit", "fixed_point", "sweep", "krylov",
-         "save", "checkpoint", "read", "replay", "capture", "precond", "gap")
+         "save", "checkpoint", "read", "replay", "capture", "precond", "gap",
+         "heat")
 (RUN, CHUNK, STEP, COMMIT, FIXED_POINT, SWEEP, KRYLOV, SAVE, CHECKPOINT,
- READ, REPLAY, CAPTURE, PRECOND, GAP) = range(len(NAMES))
+ READ, REPLAY, CAPTURE, PRECOND, GAP, HEAT) = range(len(NAMES))
 NONE = len(NAMES)               # the cause of a gap outside every span
 DEVICE_KINDS = ("tangent", "solve")
 
@@ -114,6 +121,7 @@ class Tracer:
         self.ring = [None] * self.size
         self.written = 0
         self.stack = []                 # [name, t0, child ns, step]
+        self.heat_open = 0               # open heat spans: they keep gaps
         self.count, self.total, self.self_ns = [0] * n, [0] * n, [0] * n
         self.gap_ns = [0] * (n + 1)     # by cause; NONE outside spans
         self.gap_t0 = None               # the open gap's start
@@ -135,6 +143,7 @@ class Tracer:
         if not self.on:
             self.gap_t0 = None
             self.stack.clear()
+            self.heat_open = 0
             self.run = None
 
     # -- spans --------------------------------------------------------- #
@@ -154,6 +163,7 @@ class Tracer:
         if self.gap_t0 is not None:
             self._cut(t)
         self.stack.append([name, t, 0, self.step])
+        self.heat_open += name == HEAT
 
     def end(self, name):
         """Close the innermost open span ``name``, and any left open
@@ -170,6 +180,7 @@ class Tracer:
         if self.gap_t0 is not None:
             self._cut(t)
         n, t0, child, step = st.pop()
+        self.heat_open -= n == HEAT
         d = t - t0
         self._put(n, t0, t, d - child, step)
         if n == STEP:
@@ -215,10 +226,10 @@ class Tracer:
                 self._cut(t0)
         out = t.tolist()
         t1 = self.clock()
-        parent = self._put(READ, t0, t1, t1 - t0, self.step)
+        self._put(READ, t0, t1, t1 - t0, self.step)
         if cuda:
             self.gap_t0 = self.gap_mark = t1
-            self.gap_cause = parent
+            self.gap_cause = self._holder()
         elif self.gap_t0 is not None:
             self.gap_ns[READ] += t1 - self.gap_mark
             self.gap_mark = t1
@@ -237,13 +248,19 @@ class Tracer:
             self._close_gap(self.clock())
         self.end(REPLAY)
 
+    def _holder(self):
+        """The cause of a gap now: an open ``heat`` span, else the
+        innermost open span, else none."""
+        if self.heat_open:
+            return HEAT
+        return self.stack[-1][0] if self.stack else NONE
+
     def _open_gap(self, t):
         self.gap_t0 = self.gap_mark = t
-        self.gap_cause = self.stack[-1][0] if self.stack else NONE
+        self.gap_cause = self._holder()
 
     def _cut(self, t):
-        self.gap_ns[self.stack[-1][0] if self.stack else NONE] += \
-            t - self.gap_mark
+        self.gap_ns[self._holder()] += t - self.gap_mark
         self.gap_mark = t
 
     def _close_gap(self, t):
@@ -329,6 +346,7 @@ class Tracer:
             self.resolve(block=len(self.pending))
         self.serial += 1
         self.stack.clear()
+        self.heat_open = 0
         self.gap_t0 = None
         setup = self.totals()
         self.run = {"setup": setup, "counters": counters,

@@ -18,8 +18,9 @@ import torch
 import safeincave_torch as st
 import torch_port_configs as cfg
 from safeincave_torch import tracing
-from safeincave_torch.tracing import (CHUNK, FIXED_POINT, GAP, KRYLOV, NONE,
-                                      READ, REPLAY, RUN, SAVE, STEP, Tracer)
+from safeincave_torch.tracing import (CHUNK, FIXED_POINT, GAP, HEAT, KRYLOV,
+                                      NONE, READ, REPLAY, RUN, SAVE, STEP,
+                                      Tracer)
 
 torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -119,6 +120,26 @@ def test_gap_is_keyed_by_the_innermost_span():
     at(c, 31, tr.read, Stats([1.0]))
     at(c, 35, tr.read, Stats([1.0]))
     assert tr.totals()["gaps"]["fixed_point"] == 3 + 4 + 4
+
+
+def test_a_heat_span_keeps_the_gaps_inside_it():
+    """The heat step's CG loop and its reads run inside a ``heat`` span: the
+    gaps there go to ``heat``, and to the innermost span again once the
+    heat span has closed."""
+    tr, c = tracer()
+    at(c, 0, tr.begin, STEP)
+    at(c, 1, tr.begin, HEAT)
+    at(c, 2, tr.begin, KRYLOV)
+    at(c, 3, tr.read, Stats([1.0]))       # opens a gap held by heat
+    at(c, 7, tr.end, KRYLOV)              # 4 ns in the heat's CG loop
+    at(c, 9, tr.enqueue)                  # 2 ns in the heat step itself
+    assert (GAP, 3, 9, HEAT, 0) in tr.spans()
+    at(c, 10, tr.read, Stats([1.0]))
+    at(c, 12, tr.end, HEAT)               # 2 ns, heat
+    at(c, 13, tr.begin, KRYLOV)           # 1 ns, step
+    at(c, 20, tr.enqueue)                 # 7 ns, a momentum Krylov loop
+    assert tr.totals()["gaps"] == {"heat": 8, "step": 1, "krylov": 7}
+    assert tr.heat_open == 0
 
 
 def test_ring_wraps_around():
