@@ -289,7 +289,8 @@ Phases, one line each; any failure raises and the exit code is non-zero:
              kernel in the scale section.  Echoes the child's lines and
              repeats the headline's median, min, max and counts on a line
              of its own.
-20. gpu_tests - tests/test_torch_kernels_gpu.py with the ``gpu`` marker in
+20. gpu_tests - tests/test_torch_kernels_gpu.py and
+             tests/test_torch_heat_graphs.py with the ``gpu`` marker in
              a child pytest on the card (``--noconftest``: tests/conftest.py
              imports JAX, which the card's machine lacks); any failure or
              skip, or no test run, fails the phase.  Phases 19 and 20 run
@@ -2928,12 +2929,14 @@ def bench_phase(card):
 
 
 def gpu_tests_phase():
-    """Phase 20: tests/test_torch_kernels_gpu.py with the ``gpu`` marker in
-    a child pytest on the card, without tests/conftest.py (it imports JAX,
+    """Phase 20: tests/test_torch_kernels_gpu.py and
+    tests/test_torch_heat_graphs.py with the ``gpu`` marker in a child
+    pytest on the card, without tests/conftest.py (it imports JAX,
     which this machine lacks); fails when a test fails, skips or none
     ran."""
     cmd = [sys.executable, "-m", "pytest", "--noconftest", "-m", "gpu", "-q",
-           "-p", "no:cacheprovider", "tests/test_torch_kernels_gpu.py"]
+           "-p", "no:cacheprovider", "tests/test_torch_kernels_gpu.py",
+           "tests/test_torch_heat_graphs.py"]
     t0 = time.perf_counter()
     r = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT,
                        timeout=600)
@@ -2944,7 +2947,8 @@ def gpu_tests_phase():
     if r.returncode != 0 or passed == 0 or "skipped" in tail:
         raise AssertionError(f"GPU tests: exit {r.returncode}, "
                              f"{tail!r}\n{r.stdout[-3000:]}{r.stderr[-2000:]}")
-    say("gpu_tests", f"tests/test_torch_kernels_gpu.py -m gpu: {tail} "
+    say("gpu_tests", f"tests/test_torch_kernels_gpu.py and "
+                     f"tests/test_torch_heat_graphs.py -m gpu: {tail} "
                      f"(exit 0, {time.perf_counter() - t0:.1f} s)")
 
 

@@ -8,12 +8,18 @@ side), both exact on boundary triangles:
     facet mass   M_ab = A (1 + delta_ab) / 12
     facet load   b_a  = A / 3 * value      (constant integrand)
 
-The facet tables are built once on the host.  The arrays of a time ``t``
-(mask, values, right-hand sides) are assembled on the host in float64 and
-moved to the equation's device, as the momentum conditions are.  The Robin
-operator and its diagonal act on device tensors; their node sums go through a
-padded gather (fem/kernels.py ``NodeGather``), so they repeat bit for bit on
-CUDA.
+The facet tables are built once on the host.  The heat step reads the
+conditions through :meth:`BcHandler.tables`, device tables built once per
+set of conditions (the Dirichlet mask, a node-to-condition owner table, one
+facet-load vector per Neumann or Robin condition, the Robin facets), and
+:meth:`BcHandler.values`, the one interpolated scalar per condition that
+changes with ``t``: the step's set-up gathers and scales them on the device
+(fem/heat.py), so no array is rebuilt or copied per step.  The arrays of a
+time ``t`` on their own (mask, values, right-hand sides), the reference's
+API, are assembled on the host in float64 and moved to the equation's
+device, as the momentum conditions are.  The Robin operator and its
+diagonal act on device tensors; their node sums go through a padded gather
+(fem/kernels.py ``NodeGather``), so they repeat bit for bit on CUDA.
 """
 from __future__ import annotations
 
@@ -67,6 +73,15 @@ class BcHandler:
         self._dirichlet_meta = []   # (node_indices, times, values)
         self._neumann_meta = []
         self._robin_meta = []
+        self._changed()
+
+    def _changed(self):
+        """Drop the device tables and the heat step's graphs that read
+        them: the set of conditions changed."""
+        self._tables = None
+        graphs = getattr(self.eq, "graphs", None)
+        if graphs is not None:
+            graphs.clear()
 
     def _facet_meta(self, bc):
         facets = np.asarray(self.grid.get_boundary_tags(bc.boundary_name))
@@ -75,6 +90,7 @@ class BcHandler:
                     times=bc.time_values, values=bc.values)
 
     def add_boundary_condition(self, bc: GeneralBC):
+        self._changed()
         if bc.type == "dirichlet":
             self.dirichlet_boundaries.append(bc)
             facets = self.grid.get_boundary_tags(bc.boundary_name)
@@ -99,6 +115,57 @@ class BcHandler:
 
     def _tensor(self, a):
         return torch.as_tensor(a, device=self.device)
+
+    # ------------------------------------------------------------------ #
+    def tables(self):
+        """The device tables of the conditions, built on first use after a
+        change to them: ``mask`` (N,) float64, 1 on free nodes and 0 on
+        constrained ones; ``owner`` (N,) int64, the index in
+        :meth:`values` of the Dirichlet condition that sets each node (the
+        last one added, as in :meth:`dirichlet_arrays`), or of its zero on a
+        free node; ``loads`` (C, N) float64, each Neumann and then each
+        Robin condition's facet load A / 3 summed onto its nodes; ``robin``
+        the Robin facets, as :meth:`robin_operator_apply` takes them."""
+        if self._tables is None:
+            n = self.grid.n_nodes
+            mask = np.ones(n)
+            owner = np.full(n, len(self._dirichlet_meta), dtype=np.int64)
+            for i, (nodes, _, _) in enumerate(self._dirichlet_meta):
+                mask[nodes] = 0.0
+                owner[nodes] = i
+            facets = self._neumann_meta + self._robin_meta
+            loads = np.zeros((len(facets), n))
+            for row, m in zip(loads, facets):
+                np.add.at(row, m["tris"].reshape(-1),
+                          np.repeat(m["areas"] / 3.0, 3))
+            self._tables = {"mask": self._tensor(mask),
+                            "owner": self._tensor(owner),
+                            "loads": self._tensor(loads),
+                            "robin": self.robin_tables()}
+        return self._tables
+
+    def values(self, t):
+        """The conditions' scalars at ``t`` in the order :meth:`tables`
+        indexes them: each Dirichlet value, a zero (the free nodes'), each
+        Neumann flux, each Robin ``h T_inf``; a host list of floats, by the
+        same ``interp`` as the host arrays."""
+        return ([interp(t, times, values)
+                 for _, times, values in self._dirichlet_meta] + [0.0]
+                + [interp(t, m["times"], m["values"])
+                   for m in self._neumann_meta]
+                + [m["h"] * interp(t, m["times"], m["values"])
+                   for m in self._robin_meta])
+
+    def step_arrays(self, vals, tables):
+        """(mask, T_bc, facet load) of one step from the device scalars
+        ``vals`` (:meth:`values`) and ``tables``: ``T_bc`` a gather of the
+        Dirichlet values through the owner table, the load the Neumann and
+        Robin right-hand sides together, each condition's fixed load vector
+        scaled by its scalar.  Device ops only, for a captured graph."""
+        T_bc = vals[tables["owner"]]
+        loads = tables["loads"]
+        scales = vals[len(vals) - loads.shape[0]:]
+        return tables["mask"], T_bc, (scales[:, None] * loads).sum(0)
 
     # ------------------------------------------------------------------ #
     def dirichlet_arrays(self, t):
@@ -134,21 +201,36 @@ class BcHandler:
             self._robin_meta,
             lambda m: m["h"] * interp(t, m["times"], m["values"]))
 
-    def robin_operator_apply(self, T: torch.Tensor) -> torch.Tensor:
-        """Facet-mass action sum_bc h (T, v)_Gamma (bilinear Robin term)."""
-        f = torch.zeros(self.grid.n_nodes, dtype=T.dtype, device=T.device)
-        for m in self._robin_meta:
-            T_e = T[m["tris_t"]]                                   # (F, 3)
+    def robin_tables(self):
+        """Per Robin condition (facet nodes (F, 3), h A (F,), the node
+        sums' padded index table, the contribution count)."""
+        return [(m["tris_t"], m["hA"], m["gather"].idx, m["gather"].n_contrib)
+                for m in self._robin_meta]
+
+    def robin_operator_apply(self, T: torch.Tensor,
+                             robin=None) -> torch.Tensor:
+        """Facet-mass action sum_bc h (T, v)_Gamma (bilinear Robin term),
+        read from ``robin`` (:meth:`robin_tables`, or copies of them that a
+        captured graph binds), by default the handler's own."""
+        f = None
+        for tris, hA, idx, n in (self.robin_tables() if robin is None
+                                 else robin):
+            T_e = T[tris]                                          # (F, 3)
             loc = (T_e + T_e.sum(1, keepdim=True)) / 12.0          # (1+d)/12
-            f = f + m["gather"].sum(m["hA"].to(T.dtype)[:, None] * loc)
+            s = NodeGather(idx, n).sum(hA.to(T.dtype)[:, None] * loc)
+            f = s if f is None else f + s
+        if f is None:
+            return torch.zeros(self.grid.n_nodes, dtype=T.dtype,
+                               device=T.device)
         return f
 
-    def robin_diagonal(self) -> torch.Tensor:
+    def robin_diagonal(self, robin=None) -> torch.Tensor:
         d = torch.zeros(self.grid.n_nodes, dtype=torch.float64,
                         device=self.device)
-        for m in self._robin_meta:
-            w = (m["hA"] * (2.0 / 12.0))[:, None].expand(-1, 3)
-            d = d + m["gather"].sum(w)
+        for _, hA, idx, n in (self.robin_tables() if robin is None
+                              else robin):
+            w = (hA * (2.0 / 12.0))[:, None].expand(-1, 3)
+            d = d + NodeGather(idx, n).sum(w)
         return d
 
     # ------------------------------------------------------------------ #

@@ -378,6 +378,24 @@ class HeatKernel(RankOps):
         f = (gT[:, None, :] * gN).sum(2) * kv[:, None]            # (E, 4)
         return self.gather.sum(f)
 
+    def factors(self, coef: torch.Tensor, k: torch.Tensor):
+        """The per-element factors of :meth:`apply` in the dtype of
+        ``coef``: (coef vol / 20, k vol)."""
+        vol = self._vol[coef.dtype]
+        return (coef * vol) / 20.0, k.to(coef.dtype) * vol
+
+    def apply(self, cv20: torch.Tensor, kv: torch.Tensor,
+              T: torch.Tensor) -> torch.Tensor:
+        """``mass_apply(coef, T) + stiffness_apply(k, T)`` bit for bit,
+        from :meth:`factors` made once per step, with the corner values
+        gathered once: fewer kernels per application."""
+        T_e = T[self.conn]                                        # (E, 4)
+        m = (T_e + T_e.sum(1, keepdim=True)) * cv20[:, None]
+        gN = self._gN[T.dtype]
+        gT = (T_e[:, :, None] * gN).sum(1)                        # (E, 3)
+        f = (gT[:, None, :] * gN).sum(2) * kv[:, None]            # (E, 4)
+        return self.gather.sum(m) + self.gather.sum(f)
+
     def mass_diagonal(self, coef: torch.Tensor) -> torch.Tensor:
         d = (coef * self._vol[coef.dtype] * (2.0 / 20.0))[:, None]
         return self.gather.sum(d.expand(-1, 4))

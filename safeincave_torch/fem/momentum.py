@@ -1324,7 +1324,7 @@ class LinearMomentum(LinearMomentumBase):
                 sv, eps_v, u = sv_n, eps_n, u_n
                 T = T_old = T_new
             failed = not conv
-            rows.append([float(h_it), float(tracing.read(h_res)), float(ite),
+            rows.append([float(h_it), h_res, float(ite),
                          err, float(stats[0]), float(conv)])
         for e, st in zip(self.mat.elems_ne, states):
             e.state = st

@@ -277,8 +277,9 @@ def shard_tm(eq, heat, mesh: PartMesh | None = None, axis: str = "e",
     """Shard a coupled thermo-mechanical pair over a part mesh:
     :func:`shard_equation` for the momentum equation, the per-part heat
     assembly and the padded heat coefficients.  The port's heat equation
-    caches nothing built on its kernel, so swapping the kernel and padding
-    ``k``, ``rho`` and ``cp`` is all it needs."""
+    caches nothing built on its kernel but its graphs, which setting the
+    kernel drops (a part kernel runs uncaptured), so swapping the kernel
+    and padding ``k``, ``rho`` and ``cp`` is all it needs."""
     if mesh is None:
         mesh = make_device_mesh(axis=axis)
     shard_equation(eq, mesh=mesh, axis=axis, mode=mode)

@@ -197,14 +197,18 @@ class Simulator_M(Simulator):
         eq = self.eq_mom
         self._converged = 0
         tracing.at_step(self.t_control.step_counter)
-        tracing.open_run(getattr(eq, "counters", None),
-                         cuda=eq.device.type == "cuda")
+        tracing.open_run(self._counters(), cuda=eq.device.type == "cuda")
         completed = False
         try:
             self._run()
             completed = True
         finally:
             tracing.close_run(self._converged, completed)
+
+    def _counters(self):
+        """What the run record keeps the deltas of: the momentum
+        equation's ``counters()``, or None."""
+        return getattr(self.eq_mom, "counters", None)
 
     def _run(self):
         eq = self.eq_mom
@@ -539,6 +543,15 @@ class Simulator_TM(Simulator):
         return False
 
     run = Simulator_M.run
+
+    def _counters(self):
+        """The momentum equation's counters and ``heat_replays``, the heat
+        equation's graph replays."""
+        base = Simulator_M._counters(self)
+        heat = self.eq_heat
+        if base is None or getattr(heat, "graphs", None) is None:
+            return base
+        return lambda: dict(base(), heat_replays=heat.graphs.replays)
 
     def _run(self):
         eq = self.eq_mom
