@@ -51,6 +51,7 @@ keys captured in it.
 from __future__ import annotations
 
 import contextlib
+import gc
 from collections import OrderedDict
 
 import torch
@@ -244,14 +245,22 @@ class Graphs:
             fn(*static)                      # warm-up, outside the capture
             owners = [o for o in self.counters() if o is not None]
             before = [o.launches for o in owners]
-            graph.capture_begin(pool=self._pool)
+            # no garbage collection inside the capture: collecting another
+            # equation's graphs destroys them, which the capture forbids
+            gc_on = gc.isenabled()
+            gc.disable()
             try:
-                out = fn(*static)
-            except BaseException:
-                with contextlib.suppress(RuntimeError):
-                    graph.capture_end()
-                raise
-            graph.capture_end()
+                graph.capture_begin(pool=self._pool)
+                try:
+                    out = fn(*static)
+                except BaseException:
+                    with contextlib.suppress(RuntimeError):
+                        graph.capture_end()
+                    raise
+                graph.capture_end()
+            finally:
+                if gc_on:
+                    gc.enable()
         cur.wait_stream(side)
         deltas = []
         for o, b in zip(owners, before):

@@ -21,9 +21,9 @@ early iterations of a step run as a float32 sweep
 (``SolverSettings.fp32_phase``) before the f64 finish, as the JAX package
 does on an accelerator.
 
-``solve_tm_time_steps`` advances the coupled thermo-mechanical step (heat
-step, nodal-to-element temperature, thermal strain, fixed point, commit)
-over a chunk of time steps.
+``solve_time_steps`` and ``solve_tm_time_steps`` (a heat step, the element
+temperature and the thermal strain before each fixed point) advance a chunk
+of steps through one loop, ``_advance``, and differ only in their rows.
 
 ``SolverSettings.lag_tangent`` and ``adaptive_rtol`` change the iteration
 path of that fixed point (fewer tangent builds, looser early solves with a
@@ -1222,6 +1222,66 @@ class LinearMomentum(LinearMomentumBase):
         self.run_after_solve()
         return ite, err
 
+    def _advance(self, ts, dts, tol, maxiter, heat=None):
+        """The step loop of :meth:`solve_time_steps` and
+        :meth:`solve_tm_time_steps`: extrapolated guess, fixed point, commit
+        iff converged; the first failed step ends it at its entry state.
+        With ``heat`` a step first runs ``heat.step`` (through the instance)
+        and takes its element temperature and thermal strain.  Returns
+        (iterations, error, stats, heat CG its, heat residual, converged)
+        per step tried, ``stats`` as :meth:`_fixed_point` returns them."""
+        tracing.begin(tracing.CHUNK)
+        step0 = tracing.TRACER.step
+        states = [e.state for e in self.mat.elems_ne]
+        sv, eps_v, u = self.sig_v, self.eps_tot_v, self.u
+        u_prev = getattr(self, "_u_last_step", None)
+        u_prev = u if u_prev is None else u_prev
+        if heat is None:
+            eps_th = self.compute_eps_th()
+        else:
+            T, T_old = heat.T, heat.T_old
+        tried, last = [], ((0, 0, math.nan), 0, math.nan)
+        for k, (t, dt) in enumerate(zip(ts, dts)):
+            tracing.at_step(step0 + k)
+            tracing.begin(tracing.STEP)
+            h_it = h_res = 0
+            if heat is not None:
+                T_new, h_it, h_res = heat.step(T, T_old, t, dt)
+                self.Temp = heat.kernel.nodes_to_elems(T_new)
+                eps_th = self.compute_eps_th()
+            x0 = u + (u - u_prev)
+            (st_n, sv_n, eps_n, u_n, sv_k, ite, err, stats) = \
+                self._fixed_point(states, sv, eps_v, x0,
+                                  *self._step_inputs(t), dt, tol, maxiter,
+                                  eps_th=eps_th)
+            tracing.end(tracing.STEP)
+            self.tangent_builds, self.rollbacks = stats[3], stats[4]
+            conv = math.isfinite(err) and err <= tol
+            tried.append((ite, err, stats, h_it, h_res, conv))
+            if not conv:
+                break
+            states = self._commit(st_n, sv_n, sv_k, dt)
+            u_prev = u
+            sv, eps_v, u = sv_n, eps_n, u_n
+            last = (stats, h_it, h_res)
+            if heat is not None:
+                T = T_old = T_new
+        for e, st in zip(self.mat.elems_ne, states):
+            e.state = st
+        self.sig_v, self.eps_tot_v, self.u = sv, eps_v, u
+        self._u_last_step, self._last_sv_k = u_prev, sv
+        (kry_tot, kry, lin_res, *_), h_it, h_res = last
+        self.krylov_total = int(kry_tot)
+        if heat is None:
+            self.solver_stats = (int(kry), float(lin_res))
+        else:
+            heat.T, heat.T_old = T, T_old
+            self.Temp = heat.get_T_elems()
+            heat.solver_stats = (int(h_it), float(h_res))
+        self.run_after_solve()
+        tracing.end(tracing.CHUNK)
+        return tried
+
     def solve_time_steps(self, ts, dts, tol=1e-8, maxiter=40):
         """Advance up to ``len(ts)`` time steps, committing each step iff it
         converged.  On the first non-converged step the equation is left at
@@ -1231,53 +1291,10 @@ class LinearMomentum(LinearMomentumBase):
         Returns a (K, 6) float array of rows ``[iterations, error,
         krylov_total, krylov_last, lin_res, converged]``; rows after the
         first ``converged == 0`` are ``[0, 1, 0, 0, 0, 0]``."""
-        tracing.begin(tracing.CHUNK)
-        step0 = tracing.TRACER.step
-        states = [e.state for e in self.mat.elems_ne]
-        sv, eps_v, u = self.sig_v, self.eps_tot_v, self.u
-        u_prev = getattr(self, "_u_last_step", None)
-        if u_prev is None:
-            u_prev = u
-        eps_th = self.compute_eps_th()
-        rows, failed = [], False
-        for k, (t, dt) in enumerate(zip(ts, dts)):
-            if failed:
-                rows.append([0.0, 1.0, 0.0, 0.0, 0.0, 0.0])
-                continue
-            tracing.at_step(step0 + k)
-            tracing.begin(tracing.STEP)
-            x0 = u + (u - u_prev)
-            (st_n, sv_n, eps_n, u_n, sv_k, ite, err, stats) = \
-                self._fixed_point(states, sv, eps_v, x0,
-                                  *self._step_inputs(t), dt, tol, maxiter,
-                                  eps_th=eps_th)
-            tracing.end(tracing.STEP)
-            self.tangent_builds, self.rollbacks = stats[3], stats[4]
-            conv = math.isfinite(err) and err <= tol
-            if conv:
-                states = self._commit(st_n, sv_n, sv_k, dt)
-                u_prev = u
-                sv, eps_v, u = sv_n, eps_n, u_n
-            failed = not conv
-            rows.append([float(ite), err, float(stats[0]), float(stats[1]),
-                         stats[2], float(conv)])
-        for e, st in zip(self.mat.elems_ne, states):
-            e.state = st
-        self.sig_v, self.eps_tot_v, self.u = sv, eps_v, u
-        self._u_last_step = u_prev
-        self._last_sv_k = sv
-        stats = np.asarray(rows, dtype=np.float64).reshape(-1, 6)
-        done = np.nonzero(stats[:, 5] > 0.5)[0]
-        if done.size:
-            last = stats[done[-1]]
-            self.krylov_total = int(last[2])
-            self.solver_stats = (int(last[3]), float(last[4]))
-        else:
-            self.krylov_total = 0
-            self.solver_stats = (0, float("nan"))
-        self.run_after_solve()
-        tracing.end(tracing.CHUNK)
-        return stats
+        tried = self._advance(ts, dts, tol, maxiter)
+        rows = [[ite, err, *s[:3], c] for ite, err, s, _, _, c in tried]
+        rows += [[0, 1, 0, 0, 0, 0]] * (len(ts) - len(tried))
+        return np.asarray(rows, dtype=np.float64).reshape(-1, 6)
 
     def solve_tm_time_steps(self, heat, ts, dts, tol=1e-6, maxiter=20):
         """Advance up to ``len(ts)`` coupled thermo-mechanical steps; changes
@@ -1293,55 +1310,8 @@ class LinearMomentum(LinearMomentumBase):
         Returns a (K, 6) float array of rows ``[heat_iters, heat_res,
         fp_iters, error, krylov_total, converged]``; rows after the first
         ``converged == 0`` are ``[0, 0, 0, 1, 0, 0]``."""
-        tracing.begin(tracing.CHUNK)
-        step0 = tracing.TRACER.step
-        states = [e.state for e in self.mat.elems_ne]
-        sv, eps_v, u = self.sig_v, self.eps_tot_v, self.u
-        u_prev = getattr(self, "_u_last_step", None)
-        if u_prev is None:
-            u_prev = u
-        T, T_old = heat.T, heat.T_old
-        rows, failed = [], False
-        for k, (t, dt) in enumerate(zip(ts, dts)):
-            if failed:
-                rows.append([0.0, 0.0, 0.0, 1.0, 0.0, 0.0])
-                continue
-            tracing.at_step(step0 + k)
-            tracing.begin(tracing.STEP)
-            T_new, h_it, h_res = heat.step(T, T_old, t, dt)
-            self.Temp = heat.kernel.nodes_to_elems(T_new)
-            x0 = u + (u - u_prev)
-            (st_n, sv_n, eps_n, u_n, sv_k, ite, err, stats) = \
-                self._fixed_point(states, sv, eps_v, x0,
-                                  *self._step_inputs(t), dt, tol, maxiter,
-                                  eps_th=self.compute_eps_th())
-            tracing.end(tracing.STEP)
-            self.tangent_builds, self.rollbacks = stats[3], stats[4]
-            conv = math.isfinite(err) and err <= tol
-            if conv:
-                states = self._commit(st_n, sv_n, sv_k, dt)
-                u_prev = u
-                sv, eps_v, u = sv_n, eps_n, u_n
-                T = T_old = T_new
-            failed = not conv
-            rows.append([float(h_it), h_res, float(ite),
-                         err, float(stats[0]), float(conv)])
-        for e, st in zip(self.mat.elems_ne, states):
-            e.state = st
-        self.sig_v, self.eps_tot_v, self.u = sv, eps_v, u
-        self._u_last_step = u_prev
-        self._last_sv_k = sv
-        heat.T, heat.T_old = T, T_old
-        self.Temp = heat.get_T_elems()
-        stats = np.asarray(rows, dtype=np.float64).reshape(-1, 6)
-        done = np.nonzero(stats[:, 5] > 0.5)[0]
-        if done.size:
-            last = stats[done[-1]]
-            heat.solver_stats = (int(last[0]), float(last[1]))
-            self.krylov_total = int(last[4])
-        else:
-            heat.solver_stats = (0, float("nan"))
-            self.krylov_total = 0
-        self.run_after_solve()
-        tracing.end(tracing.CHUNK)
-        return stats
+        tried = self._advance(ts, dts, tol, maxiter, heat)
+        rows = [[h_it, h_res, ite, err, s[0], c]
+                for ite, err, s, h_it, h_res, c in tried]
+        rows += [[0, 0, 0, 1, 0, 0]] * (len(ts) - len(tried))
+        return np.asarray(rows, dtype=np.float64).reshape(-1, 6)

@@ -8,12 +8,14 @@
   through ``LinearMomentum.solve_time_steps``; a step that fails inside a
   chunk rewinds to the per-step retry flow.
 * ``Simulator_Mout``: the same loop without dt-retry.
+* ``Simulator_TM``: the same loop with a heat step before each momentum
+  step (tol 1e-6, <= 20 iterations, one-way temperature coupling).  It
+  overrides hooks of ``Simulator_M``: the run's start (``T0`` from the
+  heat field), the chunk call (``solve_tm_time_steps``), the step's
+  backup (with the heat field) and one attempt (heat step first); it has
+  no metrics, checkpoints, dt feedback or diagnostic dump.
 * ``Simulator_T``: the heat-only loop, fused between output boundaries
   through ``HeatDiffusion.solve_steps``.
-* ``Simulator_TM``: heat step, then the momentum fixed point (tol 1e-6,
-  <= 20 iterations) with one-way temperature coupling, fused through
-  ``LinearMomentum.solve_tm_time_steps``; the dt-halving retry restores the
-  heat field together with the mechanical state.
 """
 from __future__ import annotations
 
@@ -89,10 +91,13 @@ class Simulator_M(Simulator):
     tol = 1e-8
     maxiter = 40
     max_dt_cuts = 3
+    # the equation's chunk method; its rows' (iterations, error) columns
+    _chunk_method = "solve_time_steps"
+    _screen_columns = (0, 1)
 
     # ------------------------------------------------------------------ #
     def _plan_chunk_size(self) -> int:
-        """Steps to advance in one fused ``solve_time_steps`` call.
+        """Steps to advance in one fused chunk (:meth:`_solve_chunk`).
 
         The host needs the fields only at output and checkpoint boundaries,
         so between them the steps run fused.  Per-step stats still surface,
@@ -104,19 +109,9 @@ class Simulator_M(Simulator):
         next call."""
         cap = self.fused_steps
         if cap == "auto":
-            cap = 64
             # an adaptive controller changes dt only at chunk boundaries
-            if hasattr(self.t_control, "feedback"):
-                cap = 4
-        if not cap or cap <= 1:
-            return 1
-        eq = self.eq_mom
-        if not hasattr(eq, "solve_time_steps"):
-            return 1
-        if type(eq).run_after_solve is not LinearMomentumBase.run_after_solve:
-            return 1
-        if ("solve_time_step" in eq.__dict__
-                or "solve_time_steps" in eq.__dict__):
+            cap = 64 if self._feedback() is None else 4
+        if not cap or cap <= 1 or not self._fusable():
             return 1
         cap = _output_cap(self.outputs, cap)
         if self.checkpoint_every:
@@ -125,15 +120,34 @@ class Simulator_M(Simulator):
                       - s0 % self.checkpoint_every)
         return max(int(cap), 1)
 
+    def _fusable(self) -> bool:
+        """No user hook on the equation and no instance-level wrapper of
+        its step or its chunk method."""
+        eq = self.eq_mom
+        return (hasattr(eq, self._chunk_method)
+                and type(eq).run_after_solve
+                is LinearMomentumBase.run_after_solve
+                and "solve_time_step" not in eq.__dict__
+                and self._chunk_method not in eq.__dict__)
+
+    def _feedback(self):
+        """The time controller's ``feedback`` (an adaptive dt), or None."""
+        return getattr(self.t_control, "feedback", None)
+
+    def _solve_chunk(self, ts, dts):
+        """The fused steps ``ts``, ``dts``; returns their rows."""
+        return self.eq_mom.solve_time_steps(ts, dts, tol=self.tol,
+                                            maxiter=self.maxiter)
+
     def _run_fused_chunk(self, chunk: int) -> bool:
-        """Advance up to ``chunk`` steps through one ``solve_time_steps``.
+        """Advance up to ``chunk`` steps through one :meth:`_solve_chunk`.
 
         Returns True when every planned step converged (outputs, metrics,
         screen rows and checkpoints accounted for).  Returns False when a
-        step failed: the equation then holds that step's entry state and
+        step failed: the equations then hold that step's entry state and
         the time controller is rewound, so the per-step dt-retry flow
         re-attempts exactly that step."""
-        eq, tc = self.eq_mom, self.t_control
+        tc = self.t_control
         s0, t0 = tc.step_counter, tc.t
         ts, dts = _planned_steps(tc, chunk)
         if not ts:
@@ -141,13 +155,13 @@ class Simulator_M(Simulator):
         tracing.at_step(s0 + 1)
         tracing.take_walls()
         t_wall0 = tracing.now()
-        stats = eq.solve_time_steps(ts, dts, tol=self.tol,
-                                    maxiter=self.maxiter)
+        stats = self._solve_chunk(ts, dts)
         chunk_wall = 1e-9 * (tracing.now() - t_wall0)
         walls = tracing.take_walls()
         conv = (stats[:, 5] > 0.5).astype(int)
         n_ok = int(conv.cumprod().sum())     # converged prefix length
         self._converged += n_ok
+        col_it, col_err = self._screen_columns
         for k in range(n_ok):
             step_no = s0 + 1 + k
             if self.metrics is not None:
@@ -167,21 +181,22 @@ class Simulator_M(Simulator):
             self.screen.print_row([
                 step_no, dts[k] / tc.time_conversion,
                 f"{current_time} / {tc.t_final / tc.time_conversion}",
-                int(stats[k, 0]), float(stats[k, 1]),
+                int(stats[k, col_it]), float(stats[k, col_err]),
             ])
-        if n_ok and hasattr(tc, "feedback"):
+        feedback = self._feedback()
+        if n_ok and feedback is not None:
             # adapt the next chunk's dt from this chunk's mean fixed-point
             # work; a partial failure reports one cut, so the controller
             # shrinks before the retry re-attempts the failed step
-            tc.feedback(float(stats[:n_ok, 0].mean()),
-                        dt_cuts=0 if n_ok == len(ts) else 1)
+            feedback(float(stats[:n_ok, 0].mean()),
+                     dt_cuts=0 if n_ok == len(ts) else 1)
         if n_ok == len(ts):
             for output in self.outputs:
                 output.skip_calls(n_ok - 1)
             self._save_derived_and_outputs(ts[-1])
             if (self.checkpoint_every
                     and tc.step_counter % self.checkpoint_every == 0):
-                save_checkpoint(self.checkpoint_path, eq, tc)
+                save_checkpoint(self.checkpoint_path, self.eq_mom, tc)
             return True
         # failed at planned step n_ok: account its predecessors' save calls
         # and rewind the controller to the failed step
@@ -210,105 +225,104 @@ class Simulator_M(Simulator):
         equation's ``counters()``, or None."""
         return getattr(self.eq_mom, "counters", None)
 
+    def _start(self):
+        """Open the outputs; then, unless the controller says a checkpoint
+        restored a mid-run state (``step_counter > 0``: its committed rates
+        must not be initialized again), the elastic response (if asked),
+        the initial rates and the save at t = 0."""
+        resumed = self.t_control.step_counter > 0
+        for output in self.outputs:
+            output.initialize()
+        self._elastic(self.compute_elastic_response and not resumed)
+        if not resumed:
+            self._initial_rates()
+
+    def _elastic(self, solve: bool):
+        """The boundary conditions at the start time, then the elastic
+        response (``solve``) or the strain of the current displacement."""
+        eq, t = self.eq_mom, self.t_control.t
+        eq.bc.update_dirichlet(t)
+        eq.bc.update_neumann(t)
+        if solve:
+            eq.solve_elastic_response()
+            eq.compute_elastic_stress(eq.compute_total_strain())
+        else:
+            eq.compute_total_strain()
+
+    def _initial_rates(self):
+        """The inelastic rates of the current stress, and the save at
+        t = 0."""
+        eq = self.eq_mom
+        eq.compute_eps_ne_rate(eq.sig_v, self.t_control.t)
+        eq.update_eps_ne_rate_old()
+        self._save_derived_and_outputs(0.0)
+
+    def _begin_step(self, t):
+        """Back up what an attempt of the step at ``t`` changes (the fields
+        ``solve_time_step`` reads, ``u`` its Krylov guess, and every
+        element's state); returns the rollback.  The backups share the live
+        tensors: a step replaces them and never writes into them."""
+        eq = self.eq_mom
+        sv, eps, u = eq.sig_v, eq.eps_tot_v, eq.u
+        eq.save_internal_state()
+
+        def restore():
+            eq.sig_v, eq.eps_tot_v, eq.u = sv, eps, u
+            eq._last_sv_k = sv
+            eq.restore_internal_state()
+        return restore
+
+    def _attempt(self, t, dt):
+        """One attempt of the step at ``t`` with ``dt``; returns
+        (iterations, error)."""
+        return self.eq_mom.solve_time_step(t, dt, tol=self.tol,
+                                           maxiter=self.maxiter)
+
     def _run(self):
         eq = self.eq_mom
         tc = self.t_control
-        # tc.step_counter > 0: load_checkpoint restored a mid-run state,
-        # committed rates included; initializing the rates again would
-        # overwrite them and break exact continuation
-        resumed = tc.step_counter > 0
-
-        for output in self.outputs:
-            output.initialize()
-
-        eq.bc.update_dirichlet(tc.t)
-        eq.bc.update_neumann(tc.t)
-
-        if self.compute_elastic_response and not resumed:
-            eq.solve_elastic_response()
-            eps_tot = eq.compute_total_strain()
-            stress = eq.compute_elastic_stress(eps_tot)
-        else:
-            eps_tot = eq.compute_total_strain()
-            stress = eq.sig_v
-
-        if not resumed:
-            eq.compute_eps_ne_rate(stress, tc.t)
-            eq.update_eps_ne_rate_old()
-            self._save_derived_and_outputs(0.0)
+        self._start()
 
         while tc.keep_looping():
             chunk = self._plan_chunk_size()
             fused_failed = False
             if chunk > 1:
-                all_converged = self._run_fused_chunk(chunk)
-                # on failure eq holds the failed step's entry state: refresh
-                # the locals so the retry backs up the right state
-                stress = eq.sig_v
-                eps_tot = eq.eps_tot_v
-                if all_converged:
+                if self._run_fused_chunk(chunk):
                     continue
+                # the equations hold the failed step's entry state
                 fused_failed = True
             # a chunk of 1, or a fused step that failed (tc rewound to it):
             # the per-step flow with dt-halving retry
             tc.advance_time()
             t, dt = tc.t, tc.dt
             tracing.at_step(tc.step_counter)
-
-            stress_backup = stress
-            eps_backup = eps_tot
-            u_backup = eq.u
-            eq.save_internal_state()
-
-            def restore_step_state():
-                """Full rollback to the pre-attempt state: solve_time_step
-                reads eq.sig_v, eq.eps_tot_v and eq.u (the Krylov initial
-                guess), so a retry resets them as well as every element's
-                state."""
-                eq.sig_v = stress_backup
-                eq.eps_tot_v = eps_backup
-                eq.u = u_backup
-                eq._last_sv_k = stress_backup
-                eq.restore_internal_state()
+            restore = self._begin_step(t)
 
             dt_current = dt
             dt_cut = 0
             step_converged = False
             ite, error = 0, 2 * self.tol
-            stress_k = stress
-
             while not step_converged and dt_cut <= self.max_dt_cuts:
                 # retries run pure f64 (no f32 sweep), so that a failure the
                 # mixed-precision path caused is not repeated; so does the
                 # first host attempt after a fused failure, which already
                 # ran the f32 path from this exact state
                 eq._fp32_disable = dt_cut > 0 or fused_failed
-                ite, error = eq.solve_time_step(t, dt_current, tol=self.tol,
-                                                maxiter=self.maxiter)
-                stress = eq.sig_v
-                eps_tot = eq.eps_tot_v
-                stress_k = eq._last_sv_k
-
+                ite, error = self._attempt(t, dt_current)
                 if not np.isnan(error) and error <= self.tol:
                     step_converged = True
+                    continue
+                dt_cut += 1
+                if dt_cut <= self.max_dt_cuts:
+                    print(f"[SOLVER] Step {tc.step_counter}: "
+                          f"{'NaN' if np.isnan(error) else 'no convergence'} "
+                          f"after {ite} iters - halving dt, "
+                          f"retry {dt_cut}/{self.max_dt_cuts}",
+                          file=sys.stderr)
+                    dt_current = dt_current / 2
                 else:
-                    dt_cut += 1
-                    if dt_cut <= self.max_dt_cuts:
-                        print(f"[SOLVER] Step {tc.step_counter}: "
-                              f"{'NaN' if np.isnan(error) else 'no convergence'} "
-                              f"after {ite} iters - halving dt, "
-                              f"retry {dt_cut}/{self.max_dt_cuts}",
-                              file=sys.stderr)
-                        dt_current = dt_current / 2
-                        restore_step_state()
-                        stress = stress_backup
-                        eps_tot = eps_backup
-                    else:
-                        self._dump_diagnostics(t, dt_current)
-                        restore_step_state()
-                        stress = stress_backup
-                        eps_tot = eps_backup
-                        stress_k = stress_backup
+                    self._dump_diagnostics(t, dt_current)
+                restore()
 
             # give later direct solve_time_step calls and the next fused
             # chunk the f32 sweep back
@@ -316,9 +330,10 @@ class Simulator_M(Simulator):
 
             if step_converged:
                 self._converged += 1
-                eq.commit_time_step(dt_current, stress, stress_k)
-                if hasattr(tc, "feedback"):
-                    tc.feedback(ite, dt_cuts=dt_cut)
+                eq.commit_time_step(dt_current, eq.sig_v, eq._last_sv_k)
+                feedback = self._feedback()
+                if feedback is not None:
+                    feedback(ite, dt_cuts=dt_cut)
 
             self._save_derived_and_outputs(t)
             if self.metrics is not None:
@@ -466,191 +481,76 @@ class Simulator_T(Simulator):
             output.save_mesh()
 
 
-class Simulator_TM(Simulator):
-    """One-way coupled thermo-mechanics."""
+class Simulator_TM(Simulator_M):
+    """One-way coupled thermo-mechanics on ``Simulator_M``'s loop."""
 
     tol = 1e-6
     maxiter = 20
-    max_dt_cuts = 3
+    _chunk_method = "solve_tm_time_steps"
+    _screen_columns = (2, 3)
 
     def __init__(self, eq_mom, eq_heat, t_control, outputs,
                  compute_elastic_response: bool = True,
                  fused_steps: int | str = "auto"):
-        self.eq_mom = eq_mom
+        super().__init__(eq_mom, t_control, outputs,
+                         compute_elastic_response, fused_steps=fused_steps)
         self.eq_heat = eq_heat
-        self.t_control = t_control
-        self.outputs = outputs
-        self.compute_elastic_response = compute_elastic_response
-        self.fused_steps = fused_steps
-        ScreenPrinter.reset_instance()
-        self.screen = ScreenPrinter(eq_mom.grid, eq_mom.solver, eq_mom.mat,
-                                    outputs, t_control.time_unit)
 
-    # ------------------------------------------------------------------ #
-    def _plan_chunk_size(self) -> int:
-        """Steps per fused ``solve_tm_time_steps`` call (see
-        ``Simulator_M._plan_chunk_size``): a chunk commits only its
-        converged prefix, and a failed step rewinds to the per-step
-        dt-retry flow."""
-        cap = self.fused_steps
-        if cap == "auto":
-            cap = 64
-        if not cap or cap <= 1:
-            return 1
-        eq, heat = self.eq_mom, self.eq_heat
-        if not hasattr(eq, "solve_tm_time_steps"):
-            return 1
-        if type(eq).run_after_solve is not LinearMomentumBase.run_after_solve:
-            return 1
-        if ("solve_time_step" in eq.__dict__
-                or "solve_tm_time_steps" in eq.__dict__
-                or "solve" in heat.__dict__):
-            return 1
-        return _output_cap(self.outputs, cap)
+    def _fusable(self) -> bool:
+        """Also no instance-level wrapper of the heat solve."""
+        return super()._fusable() and "solve" not in self.eq_heat.__dict__
 
-    def _run_fused_chunk(self, chunk: int) -> bool:
-        """Advance up to ``chunk`` fused TM steps.  Returns True when every
-        planned step converged; on a failed step the equation and the heat
-        field hold that step's entry state, the controller is rewound to
-        it, and the per-step dt-retry flow re-attempts it."""
-        eq, heat, tc = self.eq_mom, self.eq_heat, self.t_control
-        s0, t0 = tc.step_counter, tc.t
-        ts, dts = _planned_steps(tc, chunk)
-        if not ts:
-            return True
-        tracing.at_step(s0 + 1)
-        stats = eq.solve_tm_time_steps(heat, ts, dts, tol=self.tol,
-                                       maxiter=self.maxiter)
-        conv = (stats[:, 5] > 0.5).astype(int)
-        n_ok = int(conv.cumprod().sum())
-        self._converged += n_ok
-        for k in range(n_ok):
-            current_time = "%.3f" % (ts[k] / tc.time_conversion)
-            self.screen.print_row([
-                s0 + 1 + k, dts[k] / tc.time_conversion,
-                f"{current_time} / {tc.t_final / tc.time_conversion}",
-                int(stats[k, 2]), float(stats[k, 3]),
-            ])
-        if n_ok == len(ts):
-            for output in self.outputs:
-                output.skip_calls(n_ok - 1)
-            self._save_derived_and_outputs(ts[-1])
-            return True
-        for output in self.outputs:
-            output.skip_calls(n_ok)
-        tc.step_counter = s0 + n_ok
-        tc.t = ts[n_ok - 1] if n_ok else t0
-        return False
+    def _feedback(self):
+        """None: the coupled driver keeps its controller's dt."""
 
-    run = Simulator_M.run
+    def _solve_chunk(self, ts, dts):
+        return self.eq_mom.solve_tm_time_steps(self.eq_heat, ts, dts,
+                                               tol=self.tol,
+                                               maxiter=self.maxiter)
 
     def _counters(self):
         """The momentum equation's counters and ``heat_replays``, the heat
         equation's graph replays."""
-        base = Simulator_M._counters(self)
+        base = super()._counters()
         heat = self.eq_heat
         if base is None or getattr(heat, "graphs", None) is None:
             return base
         return lambda: dict(base(), heat_replays=heat.graphs.replays)
 
-    def _run(self):
-        eq = self.eq_mom
-        heat = self.eq_heat
-        tc = self.t_control
-
+    def _start(self):
+        """Every run starts a stage: ``T0`` from the heat field around the
+        elastic response, the initial rates and the save at t = 0."""
+        eq, heat = self.eq_mom, self.eq_heat
         for output in self.outputs:
             output.initialize()
-
         eq.set_T0(heat.get_T_elems())
-
-        eq.bc.update_dirichlet(tc.t)
-        eq.bc.update_neumann(tc.t)
-
-        if self.compute_elastic_response:
-            eq.solve_elastic_response()
-            eps_tot = eq.compute_total_strain()
-            stress = eq.compute_elastic_stress(eps_tot)
-        else:
-            eq.compute_total_strain()
-            stress = eq.sig_v
-
+        self._elastic(self.compute_elastic_response)
         T_elems = heat.get_T_elems()
         eq.set_T(T_elems)
         eq.set_T0(T_elems)
+        self._initial_rates()
 
-        eq.compute_eps_ne_rate(stress, tc.t)
-        eq.update_eps_ne_rate_old()
+    def _begin_step(self, t):
+        """The boundary conditions at ``t``; the rollback also resets the
+        heat field."""
+        eq, heat = self.eq_mom, self.eq_heat
+        eq.bc.update_dirichlet(t)
+        eq.bc.update_neumann(t)
+        restore_mech = super()._begin_step(t)
+        T, T_old = heat.T, heat.T_old
 
-        self._save_derived_and_outputs(0.0)
+        def restore():
+            restore_mech()
+            heat.T, heat.T_old = T, T_old
+        return restore
 
-        while tc.keep_looping():
-            chunk = self._plan_chunk_size()
-            fused_failed = False
-            if chunk > 1:
-                if self._run_fused_chunk(chunk):
-                    continue
-                fused_failed = True
-            tc.advance_time()
-            t, dt = tc.t, tc.dt
-            tracing.at_step(tc.step_counter)
+    def _attempt(self, t, dt):
+        """The heat step, the elements' temperature, then the momentum
+        step."""
+        self.eq_heat.solve(t, dt)
+        self.eq_mom.set_T(self.eq_heat.get_T_elems())
+        return super()._attempt(t, dt)
 
-            eq.bc.update_dirichlet(t)
-            eq.bc.update_neumann(t)
-
-            # dt-halving retry around the coupled step: the hardening
-            # linearization can overshoot under a large thermal-stress
-            # increment, and the cure is a smaller dt, as in Simulator_M.
-            # The backups share the live tensors: a step replaces them and
-            # never writes into them.
-            stress_backup, eps_backup, u_backup = eq.sig_v, eq.eps_tot_v, eq.u
-            T_backup, T_old_backup = heat.T, heat.T_old
-            eq.save_internal_state()
-
-            def restore():
-                eq.sig_v, eq.eps_tot_v, eq.u = (stress_backup, eps_backup,
-                                                u_backup)
-                eq._last_sv_k = stress_backup
-                eq.restore_internal_state()
-                heat.T, heat.T_old = T_backup, T_old_backup
-
-            dt_current = dt
-            dt_cut = 0
-            step_converged = False
-            ite, error = 0, 2 * self.tol
-            while not step_converged and dt_cut <= self.max_dt_cuts:
-                eq._fp32_disable = dt_cut > 0 or fused_failed
-                heat.solve(t, dt_current)
-                eq.set_T(heat.get_T_elems())
-                ite, error = eq.solve_time_step(t, dt_current, tol=self.tol,
-                                                maxiter=self.maxiter)
-                if not np.isnan(error) and error <= self.tol:
-                    step_converged = True
-                else:
-                    dt_cut += 1
-                    restore()
-                    if dt_cut <= self.max_dt_cuts:
-                        print(f"[SOLVER] TM step {tc.step_counter}: "
-                              f"{'NaN' if np.isnan(error) else 'no convergence'}"
-                              f" after {ite} iters - halving dt, "
-                              f"retry {dt_cut}/{self.max_dt_cuts}",
-                              file=sys.stderr)
-                        dt_current = dt_current / 2
-            eq._fp32_disable = False
-
-            if step_converged:
-                self._converged += 1
-                eq.commit_time_step(dt_current, eq.sig_v, eq._last_sv_k)
-
-            self._save_derived_and_outputs(t)
-            current_time = "%.3f" % (t / tc.time_conversion)
-            self.screen.print_row([
-                tc.step_counter, tc.dt / tc.time_conversion,
-                f"{current_time} / {tc.t_final / tc.time_conversion}",
-                ite, error,
-            ])
-
-        self.screen.close()
-        for output in self.outputs:
-            output.save_mesh()
-
-    _save_derived_and_outputs = Simulator_M._save_derived_and_outputs
+    def _dump_diagnostics(self, t, dt):
+        """None: when the retries run out the coupled driver restores the
+        state and writes no dump."""

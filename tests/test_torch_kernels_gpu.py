@@ -22,6 +22,10 @@ a replay raises), and held bit for bit against the same function under
 preconditioner's counters count the launches of the replayed blocks as the
 eager solve counts its own.
 
+A capture runs with the garbage collector off and turns it back on: a
+collection inside it could destroy another equation's graphs, which a
+capture forbids.
+
 The file imports no JAX, so it runs on the machine with the card:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
@@ -29,6 +33,8 @@ The file imports no JAX, so it runs on the machine with the card:
 (``--noconftest``: tests/conftest.py sets JAX up for the rest of the
 suite.)  Without a CUDA device every test skips.
 """
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -205,6 +211,19 @@ def _iteration(eq):
                                       b_ext, eq.u, mask, u_bc, cfg.HOUR)
     return dict(tangent=tangent, CT=CT, b=b, mask=mask, u_bc=u_bc, x0=x0,
                 eps_rhs=eps_rhs, states2=states2, sv=sv)
+
+
+@pytest.mark.gpu
+def test_capture_runs_without_the_collector(cuda):
+    seen = []
+
+    def plus_one(v):
+        seen.append(gc.isenabled())
+        return v + 1
+    x = torch.arange(8.0, device=cuda)
+    out = graphs.Graphs(cuda)(("plus_one",), plus_one, x)
+    assert seen == [True, False] and gc.isenabled()   # warm-up, capture
+    assert torch.equal(out, x + 1)
 
 
 @pytest.mark.gpu

@@ -14,9 +14,13 @@ The same numpy inputs go through both packages, every port object on
 - ``solve_tm_time_steps``: rows and fields against the JAX package at 1e-9,
   the per-step flow and the fused chunk agree, and a forced failure leaves
   both equations at the failed step's entry state bit for bit;
+- ``solve_tm_time_steps`` with a heat field that stays at ``T0`` and no
+  thermoelastic element equals ``solve_time_steps`` on a twin equation
+  (1e-12, equal fixed-point and Krylov counts): one step loop serves both;
 - ``Simulator_TM`` in the per-step flow and in fused chunks against the JAX
-  driver (u and T outputs read back, 1e-9), and a poisoned step recovered by
-  the dt-halving retry with the heat field restored;
+  driver (u and T outputs read back, 1e-9), a poisoned step recovered by
+  the dt-halving retry with the heat field restored, and a step that always
+  fails ending at the entry state with no commit and no diagnostic dump;
 - checkpoints with the heat keys: a bitwise port resume, JAX -> port and
   port -> JAX at 1e-10;
 - a Mohr-Coulomb + Thermoelastic coupled cube over 3 steps at 1e-8;
@@ -272,6 +276,38 @@ def test_failed_tm_step_leaves_entry_state():
     _assert_bitwise(eq, heat, snap)
 
 
+def test_tm_steps_without_heat_load_equal_mechanics_steps():
+    """With the heat field held at ``T0`` (a Dirichlet condition at 298 K,
+    the box's temperature, and no load) and no thermoelastic element, the
+    coupled chunk computes what the mechanics chunk computes on a twin
+    equation: the same fields, fixed-point and Krylov counts."""
+    eq_m, eq_t = cfg.small_box(st, "cpu"), cfg.small_box(st, "cpu")
+    one = np.ones(eq_t.n_elems)
+    eq_t.mat.set_specific_heat_capacity(850.0 * one)
+    eq_t.mat.set_thermal_conductivity(5.0 * one)
+    heat = st.HeatDiffusion(eq_t.grid, device="cpu")
+    heat.set_solver(st.SolverSettings(method="cg", rtol=1e-12, max_it=500))
+    heat.set_material(eq_t.mat)
+    heat.set_initial_T(298.0 * np.ones(eq_t.n_nodes))
+    bc = st.HeatBC.BcHandler(heat)
+    bc.add_boundary_condition(st.HeatBC.DirichletBC("TOP", [298., 298.],
+                                                    [0.0, 1e9]))
+    heat.set_boundary_conditions(bc)
+    assert eq_t.mat.elems_th == []
+    for eq in (eq_m, eq_t):
+        cfg.elastic_init(eq)
+    ts, dts = [(k + 1) * HOUR for k in range(3)], [HOUR] * 3
+    rows_m = eq_m.solve_time_steps(ts, dts, tol=1e-8, maxiter=40)
+    rows_t = eq_t.solve_tm_time_steps(heat, ts, dts, tol=1e-8, maxiter=40)
+    assert (rows_m[:, 5] == 1).all() and (rows_t[:, 5] == 1).all()
+    np.testing.assert_array_equal(rows_t[:, 2], rows_m[:, 0])
+    np.testing.assert_array_equal(rows_t[:, 4], rows_m[:, 2])
+    assert eq_t.krylov_total == eq_m.krylov_total
+    np.testing.assert_allclose(heat.T.numpy(), 298.0, rtol=1e-12)
+    _close(eq_t.u, eq_m.u, 1e-12, "u")
+    _close(eq_t.sig_v, eq_m.sig_v, 1e-12, "sig_v")
+
+
 # --------------------------------------------------------------------------- #
 # Simulator_TM
 # --------------------------------------------------------------------------- #
@@ -365,6 +401,49 @@ def test_simulator_TM_retry_recovers_poisoned_step():
     assert eq._fp32_disable is False
     assert bool(torch.isfinite(heat.T).all())
     _assert_bitwise(eq, heat, _snapshot(clean, clean_heat))
+
+
+def test_simulator_TM_exhausted_retries_restore_without_dump(tmp_path,
+                                                            monkeypatch):
+    """A step whose every attempt reports NaN and poisons the fields, the
+    states and the heat field uses up the dt halvings and ends at the entry
+    state (the coupled start, as ``tm_start`` runs it) bit for bit: nothing
+    committed, and unlike ``Simulator_M`` no ``nan_diagnostic.npz``."""
+    monkeypatch.chdir(tmp_path)
+    eq, heat = cfg.tm_cube(st, "cpu")
+    calls = {"dts": [], "commits": 0}
+
+    def fail(t, dt, tol=1e-8, maxiter=40):
+        calls["dts"].append(dt)
+        nan = float("nan")
+        eq.u, eq.sig_v = eq.u * nan, eq.sig_v * nan
+        eq.eps_tot_v, eq._last_sv_k = eq.eps_tot_v * nan, eq.sig_v
+        heat.T, heat.T_old = heat.T * nan, heat.T_old * nan
+        for e in eq.mat.elems_ne:
+            e.state = {k: v * nan for k, v in e.state.items()}
+        return maxiter, nan
+
+    def commit(*args, **kw):
+        calls["commits"] += 1
+    eq.solve_time_step, eq.commit_time_step = fail, commit
+    tc = st.TimeController(dt=1.0, initial_time=0.0, final_time=1.0,
+                           time_unit="hour")
+    sim = st.Simulator_TM(eq, heat, tc, [])
+    sim.run()
+    assert calls["dts"] == [HOUR / 2 ** k for k in range(sim.max_dt_cuts + 1)]
+    assert calls["commits"] == 0 and tc.step_counter == 1
+    assert eq._fp32_disable is False
+    assert not os.path.exists("nan_diagnostic.npz")
+    entry, entry_heat = cfg.tm_cube(st, "cpu")
+    cfg.tm_start(entry, entry_heat)
+    for k in FIELDS:
+        assert torch.equal(getattr(eq, k), getattr(entry, k)), k
+    for e, want in zip(eq.mat.elems_ne, entry.mat.elems_ne):
+        assert e.state.keys() == want.state.keys()
+        for k, v in want.state.items():
+            assert torch.equal(e.state[k], v), (e.name, k)
+    assert torch.equal(heat.T, entry_heat.T)
+    assert torch.equal(heat.T_old, entry_heat.T_old)
 
 
 # --------------------------------------------------------------------------- #
