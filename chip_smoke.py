@@ -342,6 +342,22 @@ Phases, one line each; any failure raises and the exit code is non-zero:
              launches per step, the card's name and power limit.  Runs
              after phase 21, before phase 16.
 
+23. band64 - the band kernel's f64 action (``BandMatvec.operator64``, the
+             defect-correction residual's operator on band-ordered meshes)
+             at cavern_proxy_600, cavern_proxy_1200 and
+             cavern_interlayer_1200 (3N = 10,080, 20,448 and 23,007) on a
+             random energy-symmetric tangent: against the plain twin in
+             f64 (1e-13 max|ref|), bitwise repeatable, energy symmetry;
+             ``device_us`` per call (torch.profiler, every kernel of the
+             call, the L2 flushed before each), ``bound_us`` (8 (48 E +
+             6 N) bytes over 3.35 TB/s), ``pct_of_bound``, ``wrapper_us``
+             (CUDA events), and beside it the device time of the cumsum
+             matvec it replaces (``MomentumKernel.matvec`` in f64) and of
+             that chain's scan; the registers and spills ptxas reports for
+             the f64 kernels; then the f64 tests of
+             tests/test_torch_kernels_gpu.py (``-k f64``) in a child.
+             Runs after phase 22, before phase 16 (it profiles).
+
 Phase 9 runs its case twice, with the f32 sweep as "auto" selects it and
 with ``fp32_phase=False``, and prints both lines.
 
@@ -386,7 +402,7 @@ runs phase 3 alone on the ``safeincave_torch`` package of another checkout
 the kernels in turns within one call; it prints the kernel JSON and the
 card, and no ``ok`` line.
 
-    python3 chip_smoke.py --phase tm|tm_box|lag|yearly|order|point|examples|tm_cyclic|bench|gpu_tests|conformance|graphs|halo
+    python3 chip_smoke.py --phase tm|tm_box|lag|yearly|order|point|examples|tm_cyclic|bench|gpu_tests|conformance|graphs|band64|halo
 
 builds the kernels and runs that phase alone (no ``ok`` line).
 """
@@ -2952,6 +2968,117 @@ def gpu_tests_phase():
                      f"(exit 0, {time.perf_counter() - t0:.1f} s)")
 
 
+def ptxas_report(name, kernels):
+    """ptxas's lines (registers, stack, spills) for the entry functions of
+    ``csrc/<name>.cu`` whose names contain one of ``kernels``: a second
+    nvcc of the source with ``-Xptxas -v`` into a temporary library."""
+    from safeincave_torch import _build
+    src, _ = _build._paths(name)
+    with tempfile.TemporaryDirectory() as tmp:
+        r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas",
+                            "-v", "-o", os.path.join(tmp, "lib.so"), src],
+                           capture_output=True, text=True, timeout=300)
+    if r.returncode != 0:
+        raise AssertionError(f"nvcc -Xptxas -v failed:\n{r.stderr[-3000:]}")
+    out, entry = {}, None
+    for line in (r.stdout + r.stderr).splitlines():
+        if "Compiling entry function" in line or \
+                "Function properties for" in line:
+            entry = next((k for k in kernels if k in line), None)
+        elif entry is not None and ("Used" in line or "spill" in line):
+            out.setdefault(entry, []).append(
+                line.replace("ptxas info    :", "").strip())
+    return out
+
+
+def band64_phase(st, cfg, dev):
+    """Phase 23: the f64 band action at the three band-ordered meshes
+    against its plain twin and timed beside the cumsum matvec it replaces;
+    ptxas's registers; the f64 GPU tests in a child."""
+    import torch
+    from safeincave_torch.fem.bandkernel import BandMatvec, band_matvec_plain
+    from safeincave_torch.fem.kernels import MomentumKernel
+    f64 = torch.float64
+    rng = np.random.default_rng(0)
+    timer = DeviceTimer()
+    for k, lines in ptxas_report("band_matvec", ("tile_forces_f64",
+                                                 "node_sums_f64")).items():
+        say("band64", f"ptxas {k}: {'; '.join(lines)}")
+
+    def per_call_us(fn, n=100):
+        """(device us per call summed over every kernel, {short name: us
+        per call}), the L2 flushed before each call."""
+        fn()
+        us = timer._kernel_us(fn, n, timer.flush)
+        per = {}
+        for k, (t, _) in us.items():
+            if k not in timer.flush_keys:
+                name = short_name(k)
+                per[name] = per.get(name, 0.0) + t / n
+        if not per:         # the profiler handed back no CUDA event
+            per = {"cuda graph": 1e3 * graph_ms(fn, timer.flush, n)}
+        return sum(per.values()), per
+
+    rows = []
+    shapes = [("cavern600", cfg.cavern600_grid(st)),
+              ("cavern_proxy_1200", cfg.band_grid(
+                  st, *cfg.TM_CYCLIC["tmcyc_regular1200"][:2])),
+              ("cavern_interlayer_1200", cfg.yearly_grid(st))]
+    for shape, grid in shapes:
+        E, N = grid.n_elems, grid.n_nodes
+        kern = MomentumKernel(grid, dev)
+        band = BandMatvec(kern)
+        CT = torch.as_tensor(np.transpose(random_ct(E, rng), (1, 2, 0)),
+                             dtype=f64, device=dev).contiguous()
+        ctv = band.pack_ct64(CT)
+        u, v = (torch.as_tensor(rng.normal(size=(N, 3)), dtype=f64,
+                                device=dev) for _ in range(2))
+        op = band.operator64(ctv)
+        n0 = band.launches64
+        err, scale, sym, ms, plain_ms = hold(
+            f"band64 {shape}", op, lambda x: band_matvec_plain(
+                ctv, band.gN64, band.conn, band.plan, x), u, v, 1e-13)
+        if band.launches64 == n0 or band.launches:
+            raise AssertionError("operator64 counted in the wrong counter")
+        dev_us, per = per_call_us(lambda: op(u))
+        chain_us, chain = per_call_us(lambda: kern.matvec(CT, u))
+        scan_us = sum(t for k, t in chain.items() if "scan" in k)
+        nbytes = 8 * (48 * E + 6 * N)
+        bound_us = 1e6 * nbytes / HBM_BYTES_PER_S
+        row = dict(shape=shape, E=E, N=N, dofs=3 * N, max_abs_err=err,
+                   max_ref=scale, energy_symmetry=sym, device_us=dev_us,
+                   kernels_us=per, bound_us=bound_us, bound_bytes=nbytes,
+                   pct_of_bound=100.0 * bound_us / dev_us,
+                   wrapper_us=1e3 * ms, plain_us=1e3 * plain_ms,
+                   cumsum_device_us=chain_us, cumsum_scan_us=scan_us,
+                   cumsum_kernels=len(chain),
+                   pct_of_cumsum=100.0 * dev_us / chain_us)
+        rows.append(row)
+        say("band64", f"{shape} (E={E}, N={N}, 3N={3 * N}): max|err| "
+                      f"{err:.3e} (max|ref| {scale:.3e}), bitwise "
+                      f"repeatable, energy symmetry {sym:.1e}; device "
+                      f"{dev_us:.2f} us ({fmt(per)}), bound {bound_us:.2f} "
+                      f"us ({nbytes / 1e6:.2f} MB), "
+                      f"{row['pct_of_bound']:.1f}% of bound; wrapper "
+                      f"{row['wrapper_us']:.2f} us; the cumsum matvec "
+                      f"{chain_us:.2f} us device in {len(chain)} kernel "
+                      f"names, its scan {scan_us:.2f} us; the kernel "
+                      f"{row['pct_of_cumsum']:.1f}% of it")
+        del kern, band, CT, ctv, op
+    cmd = [sys.executable, "-m", "pytest", "--noconftest", "-m", "gpu", "-q",
+           "-p", "no:cacheprovider", "-k", "f64",
+           "tests/test_torch_kernels_gpu.py"]
+    r = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT,
+                       timeout=600)
+    tail = (r.stdout.strip().splitlines() or [""])[-1]
+    if r.returncode != 0 or " passed" not in tail or "skipped" in tail:
+        raise AssertionError(f"f64 GPU tests: exit {r.returncode}, "
+                             f"{tail!r}\n{r.stdout[-3000:]}"
+                             f"{r.stderr[-2000:]}")
+    say("band64", f"tests/test_torch_kernels_gpu.py -m gpu -k f64: {tail}")
+    return rows
+
+
 # phase 21: tests/test_golden_fields.py's tolerance of the snapshots, and
 # the distance of an "auto" run that goes into ROADMAP.md's queue 2 #5
 FIELDS_RTOL = 1e-8
@@ -3354,8 +3481,8 @@ def main():
     ap.add_argument("--phase", choices=("tm", "tm_box", "lag", "yearly",
                                         "order", "point", "examples",
                                         "tm_cyclic", "bench", "gpu_tests",
-                                        "conformance", "graphs", "halo",
-                                        "cards"),
+                                        "conformance", "graphs", "band64",
+                                        "halo", "cards"),
                     help="after the build, run this phase alone (no kernel "
                     "JSON and no ok line); 'cards' needs 4 cards")
     args = ap.parse_args()
@@ -3427,6 +3554,7 @@ def main():
                    "conformance": lambda: conformance_phase(st, cfg, dev,
                                                             card),
                    "graphs": lambda: graphs_phase(st, cfg, card),
+                   "band64": lambda: band64_phase(st, cfg, dev),
                    "halo": lambda: halo_phase(st, cfg, dev, card),
                    "cards": lambda: cards_phase(st, cfg),
                    }[args.phase](),
@@ -3572,6 +3700,8 @@ def main():
     conformance = conformance_phase(st, cfg, dev, card)
     # 22. the captured time step against graphs.eager(); it profiles ----- #
     graph_launches = graphs_phase(st, cfg, card)
+    # 23. the f64 band action against the cumsum matvec; it profiles ----- #
+    band64_phase(st, cfg, dev)
     # 16. the parallel layer and the app runner; last, as it profiles ----- #
     halo_phase(st, cfg, dev, card)
 

@@ -30,6 +30,8 @@ SIGNATURES = {
     "band_matvec": {
         # (const BandPlan*, ctv, u, f, stream)
         "band_matvec_f32": ([_P] * 5, ctypes.c_int),
+        # (const BandPlan64*, ctv, u, f, stream)
+        "band_matvec_f64": ([_P] * 5, ctypes.c_int),
         "band_matvec_error_string": ([_I], ctypes.c_char_p),
     },
     "dia_matvec": {

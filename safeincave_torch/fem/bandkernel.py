@@ -1,4 +1,5 @@
-"""f32 band stiffness action: the hand-written CUDA kernel and its plain twin.
+"""Band stiffness action: the hand-written CUDA kernels (f32 and f64) and
+their plain twin.
 
 Port of ``safeincave_tpu/fem/bandkernel.py`` (``_band_kernel``, the Pallas
 TPU kernel).  The CUDA source, ``csrc/band_matvec.cu``, says what it replaces,
@@ -9,6 +10,12 @@ kernel cannot take raises.
 
 The tangent is packed once per linear solve with the element volume folded
 in (``ctv = CT * vol``, (36, E) f32), as the TPU kernel does.
+
+The f64 action (:meth:`BandMatvec.operator64`, ``ctv`` from
+:meth:`BandMatvec.pack_ct64`) is the defect-correction residual's operator
+on a band-ordered mesh: the same tile plan and summation order, f64
+gradients and an f64 partials buffer of its own, and a launch count of its
+own (``launches64``).
 """
 from __future__ import annotations
 
@@ -18,8 +25,8 @@ import numpy as np
 import torch
 
 from .. import tracing
-from .kernels import (F32, ScatterPlan, forces_stacked, gather_u, scatter,
-                      strain_stacked)
+from .kernels import (F32, F64, ScatterPlan, forces_stacked, gather_u,
+                      scatter, strain_stacked)
 
 _SMS = 132          # streaming multiprocessors of an H100
 
@@ -95,7 +102,8 @@ class BandTilePlan:
 
 class _BandPlanC(ctypes.Structure):
     """Mirror of ``struct BandPlan`` in csrc/band_matvec.cu, field by
-    field."""
+    field, and of ``struct BandPlan64`` (the same layout; its ``gn`` and
+    ``partials`` point at f64 arrays)."""
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "gn", "corner", "contrib", "tile_lo", "lnode", "dst", "lend",
         "pstart", "partials")] + [
@@ -104,12 +112,13 @@ class _BandPlanC(ctypes.Structure):
 
 
 class BandMatvec:
-    """f32 stiffness action for one mesh, on the kernel's device.
+    """f32 and f64 stiffness actions for one mesh, on the kernel's device.
 
-    ``launches`` counts kernel launches (one per application of an
+    ``launches`` counts f32 kernel launches (one per application of an
     :meth:`operator` on CUDA; each launch is an enqueue that ends a gap of
-    :mod:`~safeincave_torch.tracing`).  Applications share one partial-sum
-    buffer, so they run in the order of one stream."""
+    :mod:`~safeincave_torch.tracing`), ``launches64`` those of an
+    :meth:`operator64`.  Applications of one precision share one
+    partial-sum buffer, so they run in the order of one stream."""
 
     def __init__(self, kern):
         self.n_nodes = kern.n_nodes
@@ -118,15 +127,22 @@ class BandMatvec:
         gN, vol = kern.geom(F32)
         self.gN = gN.reshape(12, self.n_elems).contiguous()
         self.vol = vol
+        gN64, self.vol64 = kern.geom(F64)
+        self.gN64 = gN64.reshape(12, self.n_elems).contiguous()
         self.conn = kern.conn
         self.plan = kern.plan
         self._conn_np = kern.conn_np
-        self.launches = 0
-        self._plan_c = None     # the tile plan on the device, made on use
+        self.launches = self.launches64 = 0
+        self._plan_c = self._plan64_c = None   # device plans, made on use
 
     def pack_ct(self, CT_soa32):
         """(6, 6, E) f32 tangent -> vol-folded (36, E) f32, once per solve."""
         return (CT_soa32 * self.vol).reshape(36, self.n_elems).contiguous()
+
+    def pack_ct64(self, CT_soa64):
+        """(6, 6, E) f64 tangent -> vol-folded (36, E) f64, once per
+        solve."""
+        return (CT_soa64 * self.vol64).reshape(36, self.n_elems).contiguous()
 
     def matvec(self, ctv, u):
         """(N, 3) f32 -> (N, 3) f32.  A solver applies the same ``ctv``
@@ -157,43 +173,73 @@ class BandMatvec:
                 max_local=tp.max_local)
         return self._plan_c
 
+    def _device_plan64(self):
+        """The f64 action's plan: the f32 plan's tables, the f64 gradients
+        and an f64 partials buffer, made once."""
+        if self._plan64_c is None:
+            p = self._device_plan()
+            self._partials64 = torch.empty(
+                tuple(self._tables["partials"].shape), dtype=F64,
+                device=self.device)
+            self._plan64_c = _BandPlanC.from_buffer_copy(p)
+            self._plan64_c.gn = self.gN64.data_ptr()
+            self._plan64_c.partials = self._partials64.data_ptr()
+        return self._plan64_c
+
     def operator(self, ctv):
-        """The action ``u -> A u`` of the packed tangent ``ctv`` (from
+        """The f32 action ``u -> A u`` of the packed tangent ``ctv`` (from
         :meth:`pack_ct`).  A CPU ``ctv`` gives the plain twin.  A CUDA
         ``ctv`` is checked here, once (device, dtype, shape, contiguity);
         each application checks ``u`` alone and launches the kernel."""
+        return self._operator(ctv, F32)
+
+    def operator64(self, ctv):
+        """The f64 action of ``ctv`` from :meth:`pack_ct64`, checked and
+        launched as :meth:`operator` does; counted in ``launches64``."""
+        return self._operator(ctv, F64)
+
+    def _operator(self, ctv, dtype):
         E, N = self.n_elems, self.n_nodes
+        f64 = dtype == F64
         if ctv.device.type == "cpu":
+            gN = self.gN64 if f64 else self.gN
+
             def plain(u):
                 if u.device.type != "cpu":
                     raise ValueError(f"band_matvec: u is on {u.device}, ctv "
                                      f"on cpu")
-                return band_matvec_plain(ctv, self.gN, self.conn, self.plan,
-                                         u)
+                return band_matvec_plain(ctv, gN, self.conn, self.plan, u)
             return plain
         from .. import _build
-        if ctv.device != self.device or ctv.dtype != F32 or \
+        name = str(dtype).replace("torch.", "")
+        if ctv.device != self.device or ctv.dtype != dtype or \
                 tuple(ctv.shape) != (36, E) or not ctv.is_contiguous():
             raise ValueError(
-                f"band_matvec: ctv must be a contiguous (36, {E}) float32 "
+                f"band_matvec: ctv must be a contiguous (36, {E}) {name} "
                 f"tensor on {self.device}, got {tuple(ctv.shape)} "
                 f"{ctv.dtype} on {ctv.device}")
-        fn, check = _build.kernel("band_matvec", "band_matvec_f32")
+        fn, check = _build.kernel(
+            "band_matvec", "band_matvec_f64" if f64 else "band_matvec_f32")
         stream = _build.stream_query(self.device)
-        dev, plan = self.device, ctypes.addressof(self._device_plan())
+        dev = self.device
+        plan = ctypes.addressof(self._device_plan64() if f64
+                                else self._device_plan())
 
         def launch(u):
-            if u.device != dev or u.dtype != F32 or u.shape != (N, 3) or \
+            if u.device != dev or u.dtype != dtype or u.shape != (N, 3) or \
                     not u.is_contiguous():
                 raise ValueError(
-                    f"band_matvec: u must be a contiguous ({N}, 3) float32 "
+                    f"band_matvec: u must be a contiguous ({N}, 3) {name} "
                     f"tensor on {dev}, got {tuple(u.shape)} {u.dtype} on "
                     f"{u.device}")
-            f = torch.empty((N, 3), dtype=F32, device=dev)
+            f = torch.empty((N, 3), dtype=dtype, device=dev)
             check(fn(plan, ctv.data_ptr(), u.data_ptr(), f.data_ptr(),
                      stream()))
             tracing.enqueue()
-            self.launches += 1
+            if f64:
+                self.launches64 += 1
+            else:
+                self.launches += 1
             return f
 
         return launch

@@ -34,9 +34,10 @@ A capture runs ``fn`` once on a side stream first (the first use of every
 operation, a kernel's shared-memory attribute, lazily built tables), then
 captures it and replays.  A failed capture or replay raises; nothing falls
 back to running uncaptured.  ``counters`` gives the objects whose
-``launches`` count a hand kernel's launches in its Python wrapper: what a
-capture adds is taken off again and added on every replay, so the counts
-stay those of kernels that ran.
+``launches`` (and, where they have one, ``launches64``) count a hand
+kernel's launches in its Python wrapper: what a capture adds is taken off
+again and added on every replay, so the counts stay those of kernels that
+ran.
 
 On a CPU device, inside :func:`eager`, and for a :class:`Graphs` made with
 ``enabled=False`` (the parallel layer's equations) the function is called
@@ -60,6 +61,7 @@ from .. import tracing
 
 _eager_depth = [0]
 _MAX_GRAPHS = 32        # least recently used graphs beyond this are dropped
+_COUNTS = ("launches", "launches64")    # launch counts of a counter owner
 
 
 @contextlib.contextmanager
@@ -107,7 +109,7 @@ class _Graph:
     def __init__(self, graph, static, out, out_sig, through, deltas):
         self.graph, self.static = graph, static
         self.out, self.out_sig, self.through = out, out_sig, through
-        self.deltas = deltas                 # [(counter owner, launches)]
+        self.deltas = deltas         # [(counter owner, count, launches)]
         self.last = [None] * len(static)
         self.version = [0] * len(static)
         self.written = None     # the slots a step graph writes back
@@ -243,8 +245,9 @@ class Graphs:
         # allocator's cache on every capture; a new dt captures anew
         with torch.cuda.stream(side):
             fn(*static)                      # warm-up, outside the capture
-            owners = [o for o in self.counters() if o is not None]
-            before = [o.launches for o in owners]
+            owners = [(o, a) for o in self.counters() if o is not None
+                      for a in _COUNTS if hasattr(o, a)]
+            before = [getattr(o, a) for o, a in owners]
             # no garbage collection inside the capture: collecting another
             # equation's graphs destroys them, which the capture forbids
             gc_on = gc.isenabled()
@@ -263,9 +266,9 @@ class Graphs:
                     gc.enable()
         cur.wait_stream(side)
         deltas = []
-        for o, b in zip(owners, before):
-            deltas.append((o, o.launches - b))
-            o.launches = b                   # a capture launches nothing
+        for (o, a), b in zip(owners, before):
+            deltas.append((o, a, getattr(o, a) - b))
+            setattr(o, a, b)                 # a capture launches nothing
         out_leaves = []
         out_sig = _flatten(out, out_leaves)
         index = {id(t): i for i, t in enumerate(static)}
@@ -282,5 +285,5 @@ class Graphs:
         g.graph.replay()
         tracing.replay_end()
         self.replays += 1
-        for o, n in g.deltas:
-            o.launches += n
+        for o, a, n in g.deltas:
+            setattr(o, a, getattr(o, a) + n)

@@ -299,13 +299,17 @@ def _f64_action(kern, CT_hi):
     ``make(data)``; ``planes`` are the f64 planes, or None.
 
     A general (not structured) block-DIA operator, or a block-ELL one,
-    assembles f64 planes and applies them; otherwise the action is the
-    cumsum matvec (a structured box assembles only the f32 planes, which are
-    cheap, and keeps the exact f64 action matrix-free)."""
+    assembles f64 planes and applies them.  Without an assembled operator,
+    a band-ordered kernel's tangent on CUDA goes to the f64 band kernel
+    (fem/bandkernel.py).  Otherwise the action is the cumsum matvec (a
+    structured box assembles only the f32 planes, which are cheap, and keeps
+    the exact f64 action matrix-free)."""
     op = _assembled(kern)
     if op is not None and not op.structured:
         planes = op.assemble(CT_hi)
         return op.operator, planes, planes
+    if op is None and kern.band is not None and CT_hi.is_cuda:
+        return kern.band.operator64, kern.band.pack_ct64(CT_hi), None
     return _cumsum_operator(kern), CT_hi, None
 
 
@@ -687,7 +691,8 @@ class LinearMomentum(LinearMomentumBase):
     def counters(self):
         """The running counts whose deltas a run record keeps
         (:mod:`~safeincave_torch.tracing`): graph replays and captures,
-        hand-kernel launches, fixed-point and Krylov iterations, tangent
+        hand-kernel launches (the band kernel's f64 action apart, in
+        ``band64_launches``), fixed-point and Krylov iterations, tangent
         builds, rollbacks, accepted float32 sweeps, and the Mohr-Coulomb
         elements on the yield surface summed over committed steps
         (``mc_yield_elems``) over the elements that can flow, summed alike
@@ -699,6 +704,8 @@ class LinearMomentum(LinearMomentumBase):
         return {"replays": self.graphs.replays,
                 "captures": self.graphs.captures,
                 "band_launches": band.launches if band is not None else 0,
+                "band64_launches": band.launches64 if band is not None
+                else 0,
                 "dia_launches": dia.launches if dia is not None else 0,
                 "precond_launches": sym.launches if sym is not None else 0,
                 "fp_iterations": self.fp_iterations_total,

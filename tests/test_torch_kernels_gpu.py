@@ -9,6 +9,12 @@ Each kernel against its plain twin on a random energy-symmetric tangent
 order), bitwise repeatable, energy-symmetric (v.Au = u.Av), one counted
 launch per call, and a refusal of a tensor it cannot take.
 
+The band kernel's f64 action (``operator64``) at the same three shapes
+against its plain twin in f64 (1e-13 max|ref|), with the same checks,
+counted apart from the f32 launches; and the linear solve of one fixed-point
+iteration with it, captured against eager and against the cumsum f64 action
+(fields within 1e-10, Krylov counts within 2).
+
 The dense preconditioner's packed symmetric apply at cavern_proxy_600's and
 cavern_interlayer_1200's 3N (10,080 and 23,007) on a random inverse, against
 its plain twin (1e-5 max|ref|), with the same checks.
@@ -73,13 +79,14 @@ def _random_ct(E, rng, dtype, device):
                            device=device)
 
 
-def _hold(op, counter, plain, u, v, tol, sym_tol):
+def _hold(op, counter, plain, u, v, tol, sym_tol, count="launches"):
     """op (a wrapper's operator) against ``plain`` on u: max|err| within
-    tol max|ref|, bitwise repeatable, v.Au = u.Av, 3 counted launches."""
-    n0 = counter.launches
+    tol max|ref|, bitwise repeatable, v.Au = u.Av, 3 launches counted in
+    ``counter``'s attribute ``count``."""
+    n0 = getattr(counter, count)
     got, again, Av = op(u), op(u), op(v)
     torch.cuda.synchronize()
-    assert counter.launches == n0 + 3
+    assert getattr(counter, count) == n0 + 3
     ref = plain(u)
     assert torch.equal(got, again)
     assert (got - ref).abs().max().item() <= tol * ref.abs().max().item()
@@ -108,6 +115,36 @@ def test_band_kernel(cuda, shape):
         band.operator(ctv.double())
     with pytest.raises(ValueError):
         op(u.double())
+    with pytest.raises(ValueError):
+        op(u.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["cavern600", "box44_band", "cavern1200"])
+def test_band_kernel_f64(cuda, shape):
+    """The f64 action (``operator64``) against the plain twin in f64 at
+    1e-13 max|ref| (the sums run in another order), bitwise repeatable,
+    v.Au = u.Av at 1e-12, counted in ``launches64`` and not in
+    ``launches``; f32 and CPU tensors refused."""
+    grid = {"cavern600": lambda: cfg.cavern600_grid(st),
+            "box44_band": lambda: reordered_grid(_box(44), "band")[0],
+            "cavern1200": lambda: cfg.yearly_grid(st)}[shape]()
+    rng = np.random.default_rng(0)
+    band = BandMatvec(MomentumKernel(grid, cuda))
+    ctv = band.pack_ct64(_random_ct(grid.n_elems, rng, torch.float64, cuda))
+    u, v = (torch.as_tensor(rng.normal(size=(grid.n_nodes, 3)),
+                            dtype=torch.float64, device=cuda)
+            for _ in range(2))
+    op = band.operator64(ctv)
+    n32 = band.launches
+    _hold(op, band, lambda x: band_matvec_plain(ctv, band.gN64, band.conn,
+                                                band.plan, x),
+          u, v, 1e-13, 1e-12, count="launches64")
+    assert band.launches == n32
+    with pytest.raises(ValueError):
+        band.operator64(ctv.float())
+    with pytest.raises(ValueError):
+        op(u.float())
     with pytest.raises(ValueError):
         op(u.cpu())
 
@@ -278,6 +315,39 @@ def test_krylov_block_graph(cavern600):
     _same(got, want)
     assert n_replayed == launches
     assert eq.graphs.replays - n == replays[0] > 0
+
+
+@pytest.mark.gpu
+def test_f64_band_action_solve(cavern600, monkeypatch):
+    """The linear solve of one fixed-point iteration with its f64 action on
+    the band kernel: captured as eager, bit for bit, with the same f64
+    launches; against the same solve with the cumsum f64 action, fields
+    within 1e-10 max|x| and Krylov counts within 2."""
+    from safeincave_torch.fem import momentum
+    eq = cavern600
+    it = _iteration(eq)
+    P, _ = eq._get_precond()
+    band = eq.kernel.band
+
+    def solve():
+        n = band.launches64
+        x, k, _, _ = eq._get_solver()(it["CT"], it["b"], it["mask"],
+                                      it["u_bc"], it["x0"], 1e-12, P)
+        torch.cuda.synchronize()
+        return x, k, band.launches64 - n
+
+    with graphs.eager():
+        x_e, k_e, n_e = solve()
+    x_g, k_g, n_g = solve()
+    assert n_e > 0 and (k_g, n_g) == (k_e, n_e)
+    assert torch.equal(x_g, x_e)
+    monkeypatch.setattr(momentum, "_f64_action", lambda kern, CT: (
+        momentum._cumsum_operator(kern), CT, None))
+    with graphs.eager():
+        x_c, k_c, n_c = solve()
+    assert n_c == 0 and abs(k_c - k_e) <= 2
+    assert (x_e - x_c).abs().max().item() <= \
+        1e-10 * x_c.abs().max().item()
 
 
 @pytest.mark.gpu
